@@ -1,0 +1,1 @@
+"""Architecture configs (port of ``repro.configs``; qwen2.5-3b only)."""

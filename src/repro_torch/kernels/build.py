@@ -1,0 +1,104 @@
+"""Build the port's CUDA kernels into one shared library, loaded with ``ctypes``.
+
+The sources in ``csrc/`` have a plain C interface (no PyTorch headers), so
+``nvcc`` builds them in seconds.  The library is built at first use, only
+from the sources in this package, into
+``<repo>/build/repro_torch/<hash of sources and flags>/``; a later process
+with the same sources reuses it.  A failed build raises with nvcc's stderr.
+
+Flags: ``sm_90a`` (Hopper), and no ``--use_fast_math`` — it turns on
+flush-to-zero and approximate division, which break the codec's bit-exact
+contracts.  ``-Xptxas -v`` writes each kernel's registers and spills to
+``nvcc.log`` beside the library.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+HEADERS = ("minifloat.cuh",)
+SOURCES = ("quantize.cu", "bitpack.cu")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+LIB_NAME = "libomc_kernels.so"
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+_SIGNATURES = {
+    # name: (restype, argtypes)
+    "omc_error_string": (ctypes.c_char_p, [_I]),
+    "omc_quantize_stats_blocks": (_LL, [_LL]),
+    # codes, container_bytes, s, b, out, n, exp_bits, mant_bits, stream
+    "omc_dequantize": (_I, [_P, _I, _P, _P, _P, _LL, _I, _I, _P]),
+    # x, codes, container_bytes, partials, sums, n_per_entry, entries, exp, mant, stream
+    "omc_quantize_stats": (_I, [_P, _P, _I, _P, _P, _LL, _I, _I, _I, _P]),
+    # codes, container_bytes, words, n, nwords, width, stream
+    "omc_pack": (_I, [_P, _I, _P, _LL, _LL, _I, _P]),
+    # words, nwords, out, container_bytes, n, width, stream
+    "omc_unpack": (_I, [_P, _LL, _P, _I, _LL, _I, _P]),
+}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
+        return str(Path(CUDA_HOME) / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels are built from source at "
+                       "first use and need the CUDA toolkit")
+
+
+def library_path() -> Path:
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256()
+    for name in HEADERS + SOURCES:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_ROOT / h.hexdigest()[:16] / LIB_NAME
+
+
+def build() -> Path:
+    """Compile the sources if this hash has no library yet; return its path."""
+    path = library_path()
+    if path.exists():
+        return path
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_name(f"{LIB_NAME}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    (path.parent / "nvcc.log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n{proc.stderr}")
+    os.replace(tmp, path)  # atomic: a concurrent build never sees a partial file
+    return path
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """Build (once per source hash) and load the kernels; declare signatures."""
+    lib = ctypes.CDLL(str(build()))
+    for name, (restype, argtypes) in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.restype = restype
+        fn.argtypes = argtypes
+    return lib
+
+
+def check(rc: int, op: str) -> None:
+    """Raise if a C entry returned a CUDA error."""
+    if rc != 0:
+        msg = load_library().omc_error_string(rc).decode()
+        raise RuntimeError(f"{op}: CUDA error {rc} ({msg})")
