@@ -7,23 +7,43 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
 
   1. Environment: the card's name and power limit (nvidia-smi), torch and
      CUDA versions, and the build of the kernels from ``src/repro_torch/
-     kernels/csrc`` (nvcc, sm_90a), with its time.
-  2. Each kernel against its plain PyTorch version, on the card, at the serve
-     path's shapes (qwen2.5-3b's MLP slice [2048, 11008] and embedding
-     [151936, 2048] in S1E3M7) and at small odd-tail shapes in S1E2M3 and
-     S1E4M14: codes, streams and decodes bit-exact, PVT sums within
-     rtol=1e-4.  Kernel and plain version are timed with CUDA events (3
-     warm-ups, median of 20, L2 flushed before each launch).
+     kernels/csrc`` (one nvcc per source, in parallel, sm_90a), with its time.
+  2. Each of the six kernels against its plain PyTorch version, on the card:
+     at the serve path's shapes (qwen2.5-3b's MLP slice [2048, 11008] and
+     embedding [151936, 2048] in S1E3M7), at the training path's shapes
+     (``quantize`` on a transport stack [8, 17, 512, 2048] and a storage leaf
+     [17, 512, 2048]; ``fused_aggregate`` on conformer_s leaves [17, 512, 2048]
+     and [17, 512, 512] stacked, and [512, 1024] flat, at cohort 8) and at
+     small odd-tail shapes in S1E2M3 (u8) and S1E4M14 (u32): codes, streams
+     and decodes bit-exact, PVT sums within rtol=1e-4.  Kernel and plain
+     version are timed with CUDA events (3 warm-ups, median of 20, L2
+     flushed before each launch).
   3. Serve at full width: ``repro_torch.launch.serve.run`` on qwen2.5-3b,
      S1E3M7, --wire-roundtrip, batch 4, prompt 32, 16 new tokens — init on
      the card, compress (quantize_stats), encode (pack), hot-swap (unpack,
      checked bit-identical), prefill and decode (dequantize) — then three more
      request batches through ``ServeSession.generate``.  Launch counters are
-     zeroed just before and read just after: every kernel must have launched,
-     and no plain version may have run.
+     zeroed just before and read just after: every serve kernel must have
+     launched, and no plain version may have run.
   4. Card against CPU at full width: the served storage tree cut to 2 layers,
      prefill and 2 decode steps on the card (kernels) and on the CPU (plain
      versions); the largest logit difference must be <= 1e-3.
+  5. Federated training at full width through the engine
+     (``engine.run_training_vectorized``, ``engine.run_round_vectorized``):
+     conformer_s (17 layers, d 512), random weights from a seed on the card,
+     the synthetic frame task (80-dim frames, 1024 classes, 256 frames, 16
+     clients, batch 8), cohort 8 of 16 with failure rate 0.25, 2 local steps
+     at lr 0.1, S1E3M7 with PVT and PPQ 0.9.  After a warm round: 3 rounds
+     with ``fused_agg=True``, 3 unfused rounds from the same seed (ledgers
+     byte-equal, trees within max 6e-3 and mean 1e-3), and one fused round
+     with PVT off (Table 4's "quant" row).  Counters are zeroed around each
+     run: ``fused_aggregate`` 13 launches per fused round, ``quantize`` in the
+     PVT-off run, ``quantize_stats`` and ``dequantize`` in every run, no
+     plain version anywhere.
+  6. Card against CPU for training: the same configuration cut to 2 layers
+     at full width, cohort 4, 1 fused round of 1 local step, on the card
+     (kernels) and on the CPU (plain versions): ledgers equal, trees within
+     the gate of phase 5.
 
 It then prints one JSON line describing each kernel and, last, the line
 ``{"ok": true, "device": {...}}``.  f32 matmuls run in full f32: TF32 is
@@ -34,6 +54,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -46,16 +67,22 @@ sys.path.insert(0, str(ROOT / "src"))
 import torch  # noqa: E402
 
 from repro_torch.api.session import ServeSession  # noqa: E402
-from repro_torch.configs import qwen2_5_3b  # noqa: E402
-from repro_torch.core import packing  # noqa: E402
-from repro_torch.core.formats import FloatFormat, narrow  # noqa: E402
-from repro_torch.core.store import bit_equal  # noqa: E402
-from repro_torch.core.tree import tree_map  # noqa: E402
+from repro_torch.configs import conformer_s, qwen2_5_3b  # noqa: E402
+from repro_torch.core import packing, prng  # noqa: E402
+from repro_torch.core.formats import FloatFormat, narrow, widen  # noqa: E402
+from repro_torch.core.omc import OMCConfig  # noqa: E402
+from repro_torch.core.store import bit_equal, decompress_tree  # noqa: E402
+from repro_torch.core.tree import tree_items, tree_map  # noqa: E402
+from repro_torch.data.synthetic import make_frame_task  # noqa: E402
+from repro_torch.federated import accounting, engine, simulate  # noqa: E402
+from repro_torch.federated.cohort import CohortPlan  # noqa: E402
+from repro_torch.federated.state import compress_params  # noqa: E402
+from repro_torch.kernels import agg  # noqa: E402
 from repro_torch.kernels import bitpack as bk  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import quantize as qk  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
-from repro_torch.models import transformer  # noqa: E402
+from repro_torch.models import conformer, transformer  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 FMT = FloatFormat.parse("S1E3M7")
@@ -63,14 +90,23 @@ CFG = qwen2_5_3b.config()
 MLP_SLICE = (CFG.d_model, CFG.d_ff)  # one layer's w1 / w3
 EMBED = (CFG.vocab, CFG.d_model)
 STACKED_MLP = (CFG.n_layers, CFG.d_model, CFG.d_ff)  # a stacked w1 leaf
+TRAIN_CFG = conformer_s.config()
+TRAIN_LEAF = (TRAIN_CFG.n_layers, TRAIN_CFG.d_model, TRAIN_CFG.d_ff)  # stacked w1 / w2ᵀ
+COHORT = 8
 SOURCES = dict(quantize_stats="src/repro_torch/kernels/csrc/quantize.cu",
                dequantize="src/repro_torch/kernels/csrc/quantize.cu",
                pack="src/repro_torch/kernels/csrc/bitpack.cu",
-               unpack="src/repro_torch/kernels/csrc/bitpack.cu")
+               unpack="src/repro_torch/kernels/csrc/bitpack.cu",
+               quantize="src/repro_torch/kernels/csrc/quantize.cu",
+               fused_aggregate="src/repro_torch/kernels/csrc/agg.cu")
 REPLACES = dict(quantize_stats="src/repro/kernels/quantize.py:116",
                 dequantize="src/repro/kernels/quantize.py:93",
                 pack="src/repro/kernels/bitpack.py:96",
-                unpack="src/repro/kernels/bitpack.py:120")
+                unpack="src/repro/kernels/bitpack.py:120",
+                quantize="src/repro/kernels/quantize.py:77",
+                fused_aggregate="src/repro/kernels/agg.py:114")
+SERVE_KERNELS = ("quantize_stats", "dequantize", "pack", "unpack")
+TREE_MAX, TREE_MEAN = 6e-3, 1e-3  # the reference engine's fused-vs-unfused gate
 
 
 def require(cond: bool, msg: str) -> None:
@@ -171,9 +207,14 @@ def check_quantize_stats(x, fmt, batch_axes, timer=None):
     return codes, out
 
 
-def check_dequantize(codes, fmt, timer=None):
-    s = torch.tensor(1.05, device="cuda")
-    b = torch.tensor(-0.01, device="cuda")
+def check_dequantize(codes, fmt, timer=None, batch_axes=0):
+    """With ``batch_axes``, one (s, b) pair per stacked entry, shaped
+    ``[*stack, 1, ...]`` as a stacked ``CompressedVariable`` holds them."""
+    lead = tuple(codes.shape[:batch_axes])
+    shape = lead + (1,) * (codes.ndim - batch_axes) if batch_axes else ()
+    g = torch.Generator(device="cuda").manual_seed(codes.numel())
+    s = (1.0 + 0.05 * torch.randn(lead, generator=g, device="cuda")).reshape(shape)
+    b = (0.01 * torch.randn(lead, generator=g, device="cuda")).reshape(shape)
     got = qk.dequantize(codes, fmt, s, b)
     torch.cuda.synchronize()
     want = ref.ref_dequantize(codes, fmt, s, b)
@@ -210,6 +251,60 @@ def check_pack_unpack(codes, width, timer=None):
                        plain_ms=timer(lambda: ref.ref_unpack(words, width, n, codes.dtype)),
                        bound_ms=bound_ms(nbytes))
     return outs
+
+
+def check_quantize(x, fmt, want_codes, timer=None):
+    """``quantize`` against its plain version and against ``quantize_stats``'
+    codes for the same input: all bit-exact."""
+    codes = qk.quantize(x, fmt)
+    torch.cuda.synchronize()
+    require(bit_equal(codes, want_codes), f"quantize codes differ from quantize_stats' "
+            f"{fmt.name} {tuple(x.shape)}")
+    require(bit_equal(codes, ref.ref_quantize(x, fmt)),
+            f"quantize differs from its plain version {fmt.name} {tuple(x.shape)}")
+    out = dict(shape=list(x.shape), fmt=fmt.name, max_abs_err=0.0)
+    if timer:
+        out.update(ms=timer(lambda: qk.quantize(x, fmt)),
+                   plain_ms=timer(lambda: ref.ref_quantize(x, fmt)),
+                   bound_ms=bound_ms(x.numel() * (4 + fmt.container_bytes_per_value)))
+    return out
+
+
+def check_fused_aggregate(shape, batch_axes, fmt, timer=None, dead=(1, 6)):
+    """``fused_aggregate`` against its plain version at cohort 8: server and
+    client codes from random weights, per-entry (s, b), dead clients holding a
+    NaN code.  Codes bit-exact, sums within rtol=1e-4."""
+    g = torch.Generator(device="cuda").manual_seed(sum(shape) + batch_axes)
+    lead = tuple(shape[:batch_axes])
+    srv = qk.quantize(torch.randn(shape, generator=g, device="cuda") * 0.05, fmt)
+    cl = widen(qk.quantize(torch.randn((COHORT,) + shape, generator=g, device="cuda") * 0.05,
+                           fmt))
+    w = torch.ones(COHORT, device="cuda")
+    nan_code = (((1 << fmt.exp_bits) - 1) << fmt.mant_bits) | (1 << (fmt.mant_bits - 1))
+    for c in dead:
+        w[c] = 0.0
+        cl[c] = nan_code
+    cl = narrow(cl, fmt.container_dtype)
+    args = (srv, 1 + 0.05 * torch.randn(lead, generator=g, device="cuda"),
+            0.01 * torch.randn(lead, generator=g, device="cuda"), cl,
+            1 + 0.05 * torch.randn((COHORT,) + lead, generator=g, device="cuda"),
+            0.01 * torch.randn((COHORT,) + lead, generator=g, device="cuda"), w, 0.7, fmt)
+    codes, sums = agg.fused_aggregate(*args, batch_axes=batch_axes)
+    torch.cuda.synchronize()
+    rcodes, rsums = ref.ref_fused_aggregate(*args, batch_axes=batch_axes)
+    require(bit_equal(codes, rcodes), f"fused_aggregate codes differ {fmt.name} {shape}")
+    require(bool(torch.isfinite(sums).all()), f"fused_aggregate sums not finite {shape}")
+    err = (sums - rsums).abs().max().item()
+    require(torch.allclose(sums, rsums, rtol=1e-4, atol=1e-4),
+            f"fused_aggregate sums differ {fmt.name} {shape}: max err {err}")
+    out = dict(shape=list(shape), fmt=fmt.name, cohort=COHORT, dead=len(dead), max_abs_err=err)
+    if timer:
+        entries = math.prod(lead)
+        out.update(ms=timer(lambda: agg.fused_aggregate(*args, batch_axes=batch_axes)),
+                   plain_ms=timer(lambda: ref.ref_fused_aggregate(*args, batch_axes=batch_axes)),
+                   bound_ms=bound_ms(agg.fused_aggregate_moved_bytes(
+                       COHORT, srv.numel(), fmt, stack_entries=entries)))
+    return out
 
 
 def check_stacked_mlp(timer) -> dict:
@@ -256,7 +351,8 @@ def phase_kernels() -> dict:
             x = _inputs(shape, fmt, seed=sum(shape))
             codes, r = check_quantize_stats(x, fmt, batch_axes)
             results["quantize_stats"].append(r)
-            results["dequantize"].append(check_dequantize(codes, fmt))
+            results["dequantize"].append(check_dequantize(codes, fmt, batch_axes=batch_axes))
+            results["quantize"].append(check_quantize(x, fmt, codes))
             p, u = check_pack_unpack(codes, fmt.bits)
             results["pack"].append(p)
             results["unpack"].append(u)
@@ -285,6 +381,22 @@ def phase_kernels() -> dict:
     torch.cuda.empty_cache()
     stacked = check_stacked_mlp(timer)
     torch.cuda.empty_cache()
+    # the training path's shapes, timed: transport stack and storage leaf
+    for shape in ((COHORT,) + TRAIN_LEAF, TRAIN_LEAF):
+        x = _inputs(shape, FMT, seed=len(shape), specials=False)
+        results["quantize"].append(check_quantize(x, FMT, qk.quantize_stats(x, FMT)[0], timer))
+        del x
+        torch.cuda.empty_cache()
+    # fused_aggregate: odd tails in u8 and u32 with NaN dead rows, every
+    # batch_axes, all clients dead; then conformer_s' leaves at cohort 8, timed
+    for fmt in (FloatFormat.parse("S1E2M3"), FloatFormat.parse("S1E4M14"), FMT):
+        for shape, batch_axes in (((1001,), 0), ((3, 257), 1), ((2, 3, 65), 2)):
+            results["fused_aggregate"].append(check_fused_aggregate(shape, batch_axes, fmt))
+    results["fused_aggregate"].append(check_fused_aggregate((3, 257), 1, FMT, dead=range(COHORT)))
+    for shape, batch_axes in ((TRAIN_LEAF, 1), ((TRAIN_CFG.n_layers, 512, 512), 1),
+                              ((TRAIN_CFG.d_model, TRAIN_CFG.n_classes), 0)):
+        results["fused_aggregate"].append(check_fused_aggregate(shape, batch_axes, FMT, timer))
+        torch.cuda.empty_cache()
     for name, rows in results.items():
         for r in rows:
             if "ms" in r:
@@ -319,9 +431,9 @@ def phase_serve() -> dict:
     torch.cuda.synchronize()
     more_ms = (time.perf_counter() - t0) * 1e3
     counts = ops.launch_counts()
-    for op in SOURCES:
+    for op in SERVE_KERNELS:
         require(counts.get(f"{op}.cuda", 0) > 0, f"{op} kernel never launched on the main path")
-        require(counts.get(f"{op}.ref", 0) == 0, f"{op} plain version ran on the main path")
+    require(not any(k.endswith(".ref") for k in counts), f"a plain version ran: {counts}")
     report.update(more_batches_ms=more_ms, max_memory_allocated=torch.cuda.max_memory_allocated(),
                   launch_counts=counts, serve_stats=sess.serve_stats())
     report.pop("tokens")
@@ -355,23 +467,167 @@ def phase_card_vs_cpu(sess: ServeSession) -> float:
     return worst
 
 
-def kernel_line(kernels: dict, counts: dict) -> dict:
+# ---------------------------------------------------------------------------
+# 5. federated training at full width, 6. card against CPU
+# ---------------------------------------------------------------------------
+
+
+def tree_gap(a, b) -> tuple:
+    """(largest per-leaf max |d|, largest per-leaf mean |d|) between two
+    decompressed storage trees, on a common device."""
+    da, db = dict(tree_items(decompress_tree(a))), dict(tree_items(decompress_tree(b)))
+    require(da.keys() == db.keys(), "trees differ in structure")
+    worst_max = worst_mean = 0.0
+    for path, x in da.items():
+        y = db[path].to(x.device)
+        require(x.shape == y.shape, f"leaf {path} shapes differ")
+        require(bool(torch.isfinite(x).all() and torch.isfinite(y).all()), f"leaf {path} not finite")
+        d = (x - y).abs()
+        worst_max, worst_mean = max(worst_max, d.max().item()), max(worst_mean, d.mean().item())
+    return worst_max, worst_mean
+
+
+def ledger(history) -> list:
+    return [{k: h[k] for k in ("round", "cohort", "dropped", "down_bytes", "up_bytes")}
+            for h in history]
+
+
+def require_launches(counts: dict, run: str, **want) -> None:
+    """``want``: op -> exact count, or None for "at least once"."""
+    require(not any(k.endswith(".ref") for k in counts), f"{run}: a plain version ran: {counts}")
+    for op, n in want.items():
+        got = counts.get(f"{op}.cuda", 0)
+        require(got > 0 if n is None else got == n, f"{run}: {op} launched {got} times, "
+                f"expected {'some' if n is None else n}: {counts}")
+
+
+def phase_train() -> dict:
+    cfg = TRAIN_CFG
+    omc = OMCConfig.parse(FMT.name)  # PVT on, PPQ 0.9
+    sim = simulate.SimConfig(local_steps=2, client_lr=0.1)
+    spec = engine.CohortSpec(CohortPlan(num_clients=16, cohort_size=COHORT, failure_rate=0.25))
+    task = make_frame_task(d_in=cfg.d_in, n_classes=cfg.n_classes, seq_len=256, num_clients=16)
+    data_fn = lambda c, r, s: task.batch(c, r, s, 8)  # noqa: E731
+    key = prng.PRNGKey(0)
+    params = conformer.init(torch.Generator(device="cuda").manual_seed(0), cfg)
+    n_params = sum(v.numel() for _, v in tree_items(params))
+    specs = conformer.param_specs(cfg)
+
+    def train(rounds, fused):
+        return engine.run_training_vectorized(conformer, cfg, omc, sim, spec, data_fn, key,
+                                              rounds, init_params=params, fused_agg=fused)
+
+    t0 = time.perf_counter()
+    train(1, True)  # warm round: allocator, cuBLAS handles, lazy kernel loading
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    runs = {}
+    for fused in (True, False):
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        storage, history = train(3, fused)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs[fused] = dict(storage=storage, history=history, round_s=wall / 3,
+                           counts=ops.launch_counts(),
+                           max_memory_allocated=torch.cuda.max_memory_allocated())
+    require_launches(runs[True]["counts"], "fused", fused_aggregate=13 * 3, quantize_stats=None,
+                     dequantize=None)
+    require_launches(runs[False]["counts"], "unfused", fused_aggregate=0, quantize_stats=None,
+                     dequantize=None)
+    require(ledger(runs[True]["history"]) == ledger(runs[False]["history"]),
+            "fused and unfused ledgers differ")
+    for h in runs[True]["history"] + runs[False]["history"]:
+        require(math.isfinite(h["loss"]) and 0 < h["loss"] < 20, f"bad loss {h}")
+    for hf, hu in zip(runs[True]["history"], runs[False]["history"]):
+        require(abs(hf["loss"] - hu["loss"]) < 1e-3, f"fused and unfused losses differ: {hf} {hu}")
+    gap = tree_gap(runs[True]["storage"], runs[False]["storage"])
+    require(gap[0] <= TREE_MAX and gap[1] <= TREE_MEAN, f"fused vs unfused trees differ: {gap}")
+
+    # Table 4's "quant" row: PVT off; storage and transport encode with `quantize`
+    omc_q = OMCConfig.parse(FMT.name, pvt=False)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    storage_q = compress_params(params, specs, omc_q)
+    table_q = accounting.build_wire_table(params, specs, omc_q)
+    storage_q, metrics_q = engine.run_round_vectorized(
+        conformer, cfg, specs, omc_q, sim, storage_q, data_fn, spec, 0,
+        prng.fold_in(key, 0xC047), wire_table=table_q, fused_agg=True)
+    torch.cuda.synchronize()
+    quant = dict(round_s=time.perf_counter() - t0, metrics=metrics_q,
+                 counts=ops.launch_counts(),
+                 max_memory_allocated=torch.cuda.max_memory_allocated())
+    require_launches(quant["counts"], "pvt=False", quantize=None, fused_aggregate=13,
+                     dequantize=None)
+    require(math.isfinite(metrics_q["loss"]), f"bad loss {metrics_q}")
+    for _, leaf in tree_items(decompress_tree(storage_q)):
+        require(bool(torch.isfinite(leaf).all()), "pvt=False tree not finite")
+
+    print(f"  conformer_s: {n_params:,} parameters; warm round {warm_s:.2f} s")
+    for fused, r in runs.items():
+        print(f"  {'fused  ' if fused else 'unfused'} {r['round_s'] * 1e3:.1f} ms per round, "
+              f"peak {r['max_memory_allocated'] / 1e9:.2f} GB, launches {r['counts']}")
+        for h in r["history"]:
+            print(f"    {h}")
+    print(f"  fused vs unfused trees: max |d| {gap[0]:.3g}, mean |d| {gap[1]:.3g}")
+    print(f"  pvt=False fused round {quant['round_s'] * 1e3:.1f} ms (with storage compress), "
+          f"{metrics_q}, launches {quant['counts']}")
+    counts = {}
+    for c in (runs[True]["counts"], runs[False]["counts"], quant["counts"]):
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+    return dict(n_params=n_params, warm_s=warm_s, gap=gap, quant=quant, counts=counts,
+                runs={("fused" if f else "unfused"): {k: v for k, v in r.items() if k != "storage"}
+                      for f, r in runs.items()})
+
+
+def phase_train_card_vs_cpu() -> tuple:
+    cfg = dataclasses.replace(TRAIN_CFG, n_layers=2)
+    omc = OMCConfig.parse(FMT.name)
+    sim = simulate.SimConfig(local_steps=1, client_lr=0.1)
+    spec = engine.CohortSpec(CohortPlan(num_clients=16, cohort_size=4, failure_rate=0.25))
+    params = conformer.init(torch.Generator(device="cuda").manual_seed(1), cfg)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        task = make_frame_task(d_in=cfg.d_in, n_classes=cfg.n_classes, seq_len=256,
+                               num_clients=16, device=dev)
+        out[dev] = engine.run_training_vectorized(
+            conformer, cfg, omc, sim, spec, lambda c, r, s, t=task: t.batch(c, r, s, 8),
+            prng.PRNGKey(0), 1, init_params=tree_map(lambda x, d=dev: x.to(d), params),
+            fused_agg=True)
+    require(ledger(out["cuda"][1]) == ledger(out["cpu"][1]), "card and CPU ledgers differ")
+    gap = tree_gap(out["cuda"][0], out["cpu"][0])
+    print(f"  card vs CPU, 2 layers at full width, 1 round: losses "
+          f"{out['cuda'][1][0]['loss']} / {out['cpu'][1][0]['loss']}, trees max |d| {gap[0]:.3g},"
+          f" mean |d| {gap[1]:.3g}")
+    require(abs(out["cuda"][1][0]["loss"] - out["cpu"][1][0]["loss"]) < 1e-3,
+            "card and CPU losses differ")
+    require(gap[0] <= TREE_MAX and gap[1] <= TREE_MEAN, f"card and CPU trees differ: {gap}")
+    return gap
+
+
+def kernel_line(kernels: dict, counts_by_path: dict) -> dict:
     primary = dict(quantize_stats=list(EMBED), dequantize=list(MLP_SLICE), pack=list(EMBED),
-                   unpack=list(EMBED))
+                   unpack=list(EMBED), quantize=[COHORT, *TRAIN_LEAF],
+                   fused_aggregate=list(TRAIN_LEAF))
     entries = []
     for name, rows in kernels["results"].items():
         timed = [r for r in rows if "ms" in r]
         main = next(r for r in timed if r["shape"] == primary[name])
+        by_path = {path: c.get(f"{name}.cuda", 0) for path, c in counts_by_path.items()}
         entries.append(dict(
             name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
-            launches=counts.get(f"{name}.cuda", 0), matched=True,
+            launches=sum(by_path.values()), launches_by_path=by_path, matched=True,
             max_abs_err=max(r["max_abs_err"] for r in rows), ms=main["ms"],
             plain_ms=main["plain_ms"], bound_ms=main["bound_ms"], bound_by="bytes",
             library_ms=None, shape=main["shape"],
             at_shapes=[{k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms")}
                        for r in timed]))
     return dict(kernels=entries,
-                library_ms_note="no single PyTorch call decodes or packs a minifloat",
+                library_ms_note="no single PyTorch call encodes, decodes or packs a minifloat, "
+                                "or aggregates client codes",
                 stacked_mlp=kernels["stacked"])
 
 
@@ -382,7 +638,12 @@ def main() -> None:
     kernels = phase_kernels()
     served = phase_serve()
     phase_card_vs_cpu(served["session"])
-    print(json.dumps(kernel_line(kernels, served["report"]["launch_counts"])))
+    del served["session"]
+    torch.cuda.empty_cache()
+    trained = phase_train()
+    phase_train_card_vs_cpu()
+    print(json.dumps(kernel_line(kernels, dict(serve=served["report"]["launch_counts"],
+                                               train=trained["counts"]))))
     print(json.dumps(dict(ok=True, device=dict(platform="gpu", kind=torch.cuda.get_device_name(0),
                                                count=torch.cuda.device_count()))))
 

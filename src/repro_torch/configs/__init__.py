@@ -1,1 +1,1 @@
-"""Architecture configs (port of ``repro.configs``; qwen2.5-3b only)."""
+"""Architecture configs (port of ``repro.configs``; qwen2.5-3b and conformer_s)."""

@@ -1,1 +1,2 @@
-"""OMC codec: formats, PVT, policy, packing, storage (port of ``repro.core``)."""
+"""OMC codec: formats, PVT, policy, PPQ, packing, storage, and the threefry
+PRNG the reference's streams come from (port of ``repro.core``)."""

@@ -8,7 +8,9 @@ from __future__ import annotations
 
 import dataclasses
 import re
-from typing import Any, Optional, Sequence, Tuple
+from typing import Any, List, Optional, Sequence, Tuple
+
+from .tree import tree_items
 
 
 def path_str(path: Sequence[Any]) -> str:
@@ -33,6 +35,14 @@ class QuantizePolicy:
     exclude_re: Tuple[str, ...] = ()
     include_re: Optional[Tuple[str, ...]] = None
 
+    def selects(self, path: str, leaf: Any) -> bool:
+        """All rules, with the leaf's own rank (no stacked axes)."""
+        if not hasattr(leaf, "is_floating_point") or not leaf.is_floating_point():
+            return False
+        if self.weights_only and leaf.ndim < self.min_ndim:
+            return False
+        return self.selects_name(path, leaf.numel())
+
     def selects_name(self, path: str, size: int) -> bool:
         """The size and path rules.  The rank rule (``weights_only``,
         ``min_ndim``) needs the stacked-axis count and lives in
@@ -44,3 +54,8 @@ class QuantizePolicy:
         if self.include_re is not None:
             return any(re.search(p, path) for p in self.include_re)
         return True
+
+
+def quantizable_names(params, policy: QuantizePolicy) -> List[str]:
+    """Paths of the leaves ``policy`` selects, in leaf order."""
+    return [path_str(p) for p, leaf in tree_items(params) if policy.selects(path_str(p), leaf)]

@@ -69,18 +69,20 @@ def compress_variable(
     """Quantize one variable to OMC storage form in one fused pass.
 
     ``batch_axes > 0`` treats the leading axes as stacked independent
-    variables: (s, b) are solved per entry.  (s, b) always come from the
-    closed form on plain f32 sums — the reference's ``fast=True`` solver,
-    which its ``compress_params`` uses; the compensated ``pvt_solve`` is not
-    ported (ROADMAP A1).
+    variables: (s, b) are solved per entry.  With ``pvt`` the codes and the
+    four PVT sums come from one ``quantize_stats`` launch and (s, b) from the
+    closed form on those plain f32 sums — the reference's ``fast=True``
+    solver, which its ``compress_params`` and transport use.  Without it the
+    ``quantize`` kernel writes the codes alone and (s, b) = (1, 0).
     """
     from repro_torch.kernels import ops  # deferred: kernels imports core
 
-    codes, sums = ops.quantize_stats(v, fmt, batch_axes)
     lead = tuple(v.shape[:batch_axes])
     if pvt:
+        codes, sums = ops.quantize_stats(v, fmt, batch_axes)
         s, b = pvt_from_sums(sums, math.prod(v.shape[batch_axes:]))
     else:
+        codes = ops.quantize(v, fmt)
         s = torch.ones(lead, dtype=torch.float32, device=v.device)
         b = torch.zeros(lead, dtype=torch.float32, device=v.device)
     shape = lead + (1,) * (v.ndim - batch_axes) if batch_axes else ()

@@ -4,8 +4,8 @@
 selected variables become ``CompressedVariable`` (the paper's storage model —
 no persistent f32 master).  The number of PVT batch axes per leaf (stacked
 layers) comes from the ParamSpec: stacked axes are exactly the leading axes
-the spec does not describe.  ``TrainState``/``init_state`` belong to the
-training slice.
+the spec does not describe.  ``TrainState``/``init_state`` serve
+``federated/round.py``'s training round, not ported yet (ROADMAP).
 """
 
 from __future__ import annotations

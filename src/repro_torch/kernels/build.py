@@ -1,8 +1,9 @@
 """Build the port's CUDA kernels into one shared library, loaded with ``ctypes``.
 
 The sources in ``csrc/`` have a plain C interface (no PyTorch headers), so
-``nvcc`` builds them in seconds.  The library is built at first use, only
-from the sources in this package, into
+``nvcc`` builds them in seconds: one ``nvcc -c`` per source, all started
+together, then one link.  The library is built at first use, only from the
+sources in this package, into
 ``<repo>/build/repro_torch/<hash of sources and flags>/``; a later process
 with the same sources reuses it.  A failed build raises with nvcc's stderr.
 
@@ -23,28 +24,36 @@ import subprocess
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-HEADERS = ("minifloat.cuh",)
-SOURCES = ("quantize.cu", "bitpack.cu")
+HEADERS = ("minifloat.cuh", "reduce.cuh")
+SOURCES = ("quantize.cu", "bitpack.cu", "agg.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 LIB_NAME = "libomc_kernels.so"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
+_F = ctypes.c_float
 _SIGNATURES = {
     # name: (restype, argtypes)
     "omc_error_string": (ctypes.c_char_p, [_I]),
     "omc_quantize_stats_blocks": (_LL, [_LL]),
-    # codes, container_bytes, s, b, out, n, exp_bits, mant_bits, stream
-    "omc_dequantize": (_I, [_P, _I, _P, _P, _P, _LL, _I, _I, _P]),
+    "omc_fused_aggregate_blocks": (_LL, [_LL, _I]),
+    # x, codes, container_bytes, n, exp, mant, stream
+    "omc_quantize": (_I, [_P, _P, _I, _LL, _I, _I, _P]),
+    # codes, container_bytes, s, b, out, n_per_entry, entries, exp_bits, mant_bits, stream
+    "omc_dequantize": (_I, [_P, _I, _P, _P, _P, _LL, _I, _I, _I, _P]),
     # x, codes, container_bytes, partials, sums, n_per_entry, entries, exp, mant, stream
     "omc_quantize_stats": (_I, [_P, _P, _I, _P, _P, _LL, _I, _I, _I, _P]),
     # codes, container_bytes, words, n, nwords, width, stream
     "omc_pack": (_I, [_P, _I, _P, _LL, _LL, _I, _P]),
     # words, nwords, out, container_bytes, n, width, stream
     "omc_unpack": (_I, [_P, _LL, _P, _I, _LL, _I, _P]),
+    # srv, srv_s, srv_b, cl, cl_s, cl_b, w, clients, lr, out, container_bytes,
+    # partials, sums, m, entries, exp, mant, stream
+    "omc_fused_aggregate": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _F, _P, _I, _P, _P, _LL, _I,
+                                 _I, _I, _P]),
 }
 
 
@@ -76,12 +85,24 @@ def build() -> Path:
     if path.exists():
         return path
     path.parent.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(f"{LIB_NAME}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (path.parent / "nvcc.log").write_text(proc.stdout + proc.stderr)
+    nvcc, tag = _nvcc(), f"{os.getpid()}.tmp"
+    objs = [path.with_name(f"{src}.{tag}.o") for src in SOURCES]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(SOURCES, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    (path.parent / "nvcc.log").write_text("".join(logs))
+    failed = [(src, log) for src, p, log in zip(SOURCES, procs, logs) if p.returncode != 0]
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(f"{s}:\n{log}" for s, log in failed))
+    tmp = path.with_name(f"{LIB_NAME}.{tag}")
+    proc = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                          capture_output=True, text=True)
+    for obj in objs:
+        obj.unlink()
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n{proc.stderr}")
+        raise RuntimeError(f"linking the kernels failed with exit code {proc.returncode}:\n"
+                           f"{proc.stderr}")
     os.replace(tmp, path)  # atomic: a concurrent build never sees a partial file
     return path
 

@@ -110,11 +110,14 @@ __device__ __forceinline__ float decode_bits(uint32_t c, const Format& f) {
   return __uint_as_float(sign31 | ((ef + uint32_t(127 - f.bias)) << 23) | (m << (23 - f.z)));
 }
 
+// Most blocks a grid-stride loop launches: 4224, 32 per SM of an H100.
+constexpr long long kMaxGrid = 8 * 132 * 4;
+
 // Grid size for a grid-stride loop over `items` work items.
 inline unsigned grid_for(long long items, int threads) {
   long long blocks = (items + threads - 1) / threads;
   if (blocks < 1) blocks = 1;
-  if (blocks > 8 * 132 * 4) blocks = 8 * 132 * 4;  // 4224: 32 blocks per SM
+  if (blocks > kMaxGrid) blocks = kMaxGrid;
   return unsigned(blocks);
 }
 

@@ -1,12 +1,21 @@
-// OMC dequantize and quantize_stats for Hopper (sm_90a).
+// OMC quantize, dequantize and quantize_stats for Hopper (sm_90a).
+//
+// quantize replaces src/repro/kernels/quantize.py::quantize (the Pallas
+// kernel of quantize.py:77): f32 -> minifloat codes, nothing else.
+//   Bound: bytes, n*(4 + container_bytes).  Design: a grid-stride
+//   elementwise pass; each thread loads a float4 and stores its four codes
+//   in one store.  Its codes are quantize_stats' codes, bit for bit: the
+//   same value_quantize and encode_bits from minifloat.cuh.
 //
 // dequantize replaces src/repro/kernels/quantize.py::dequantize (the Pallas
 // kernel of quantize.py:93): codes -> f32 with the PVT affine s*x + b fused.
 //   Bound: bytes.  It reads n container codes and writes n f32, nothing else,
 //   so the least time is n*(container_bytes + 4) / 3.35 TB/s.  Design: a
-//   grid-stride elementwise pass; each thread loads 16 bytes of codes at once
-//   and stores them as float4s; s and b are read from device memory (the [l]
-//   views of a stacked [L,1,1] leaf), so no host sync is needed per weight.
+//   grid-stride elementwise pass over each stacked entry (grid y = entry);
+//   each thread loads 16 bytes of codes at once and stores them as float4s;
+//   the entry's s and b are read from device memory (one pair for a single
+//   variable, one per entry for a stacked [L,1,1] leaf), so no host sync is
+//   needed per weight.
 //
 // quantize_stats replaces src/repro/kernels/quantize.py::quantize_stats (the
 // Pallas kernel of quantize.py:116): f32 -> codes plus the four PVT sums
@@ -17,10 +26,11 @@
 //   small launch reduces each entry's partials in a fixed order.  No float
 //   atomics: (s, b) are the same from run to run.
 #include "minifloat.cuh"
+#include "reduce.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = omc::kReduceThreads;  // block_sum4 assumes this size
 constexpr int kStatsItems = 16;  // elements per thread: 4096 per block
 
 __device__ __forceinline__ float affine(float v, float s, float b) {
@@ -31,8 +41,11 @@ template <typename T, bool kVec>
 __global__ void dequantize_kernel(const T* __restrict__ codes, const float* __restrict__ s_ptr,
                                   const float* __restrict__ b_ptr, float* __restrict__ out,
                                   long long n, omc::Format f) {
-  const float s = *s_ptr;
-  const float b = *b_ptr;
+  // grid = (blocks, entries); n is the entry's count, codes and out its base
+  codes += (long long)blockIdx.y * n;
+  out += (long long)blockIdx.y * n;
+  const float s = s_ptr[blockIdx.y];
+  const float b = b_ptr[blockIdx.y];
   const long long stride = (long long)gridDim.x * blockDim.x;
   long long start = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   long long done = 0;
@@ -60,26 +73,33 @@ __global__ void dequantize_kernel(const T* __restrict__ codes, const float* __re
   }
 }
 
-// Deterministic sum of four values over the block; the result is valid in
-// thread 0.  The order is fixed by the block shape alone.
-__device__ __forceinline__ void block_sum4(float a[4]) {
-  __shared__ float warp_sums[kThreads / 32][4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    for (int off = 16; off > 0; off >>= 1) a[j] += __shfl_down_sync(0xFFFFFFFFu, a[j], off);
-  }
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (lane == 0) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) warp_sums[warp][j] = a[j];
-  }
-  __syncthreads();
-  if (warp == 0) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      a[j] = lane < kThreads / 32 ? warp_sums[lane][j] : 0.0f;
-      for (int off = 16; off > 0; off >>= 1) a[j] += __shfl_down_sync(0xFFFFFFFFu, a[j], off);
+// Four codes, stored with one instruction.
+template <typename T>
+struct alignas(4 * sizeof(T)) Codes4 {
+  T v[4];
+};
+
+template <typename T, bool kVec>
+__global__ void quantize_kernel(const float* __restrict__ x, T* __restrict__ codes, long long n,
+                                omc::Format f) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long start = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  long long done = 0;
+  if (kVec) {
+    const long long nvec = n / 4;
+    for (long long i = start; i < nvec; i += stride) {
+      const float4 v = reinterpret_cast<const float4*>(x)[i];
+      Codes4<T> c;
+      c.v[0] = T(omc::encode_bits(omc::value_quantize(v.x, f), f));
+      c.v[1] = T(omc::encode_bits(omc::value_quantize(v.y, f), f));
+      c.v[2] = T(omc::encode_bits(omc::value_quantize(v.z, f), f));
+      c.v[3] = T(omc::encode_bits(omc::value_quantize(v.w, f), f));
+      reinterpret_cast<Codes4<T>*>(codes)[i] = c;
     }
+    done = nvec * 4;
+  }
+  for (long long i = done + start; i < n; i += stride) {
+    codes[i] = T(omc::encode_bits(omc::value_quantize(x[i], f), f));
   }
 }
 
@@ -104,7 +124,7 @@ __global__ void quantize_stats_kernel(const float* __restrict__ x, T* __restrict
       a[3] += q * q;
     }
   }
-  block_sum4(a);
+  omc::block_sum4(a);
   if (threadIdx.x == 0) {
     float* p = partials + ((long long)blockIdx.y * gridDim.x + blockIdx.x) * 4;
 #pragma unroll
@@ -112,34 +132,34 @@ __global__ void quantize_stats_kernel(const float* __restrict__ x, T* __restrict
   }
 }
 
-// grid = entries; sums is [entries, 4].
-__global__ void reduce_partials_kernel(const float* __restrict__ partials,
-                                       float* __restrict__ sums, long long blocks) {
-  const float* p = partials + (long long)blockIdx.x * blocks * 4;
-  float a[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  for (long long i = threadIdx.x; i < blocks; i += kThreads) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) a[j] += p[i * 4 + j];
-  }
-  block_sum4(a);
-  if (threadIdx.x == 0) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) sums[blockIdx.x * 4 + j] = a[j];
+template <typename T>
+void launch_dequantize(const void* codes, const float* s, const float* b, float* out,
+                       long long n, int entries, const omc::Format& f, cudaStream_t stream) {
+  // every entry's base stays 16-byte aligned when n is a multiple of 16
+  const bool vec = reinterpret_cast<uintptr_t>(codes) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0 && (entries == 1 || n % 16 == 0);
+  const T* c = static_cast<const T*>(codes);
+  const unsigned cap = unsigned((omc::kMaxGrid + entries - 1) / entries);  // per entry
+  const unsigned blocks = vec ? omc::grid_for(n / (16 / sizeof(T)), kThreads)
+                              : omc::grid_for(n, kThreads);
+  const dim3 grid{blocks < cap ? blocks : cap, unsigned(entries)};
+  if (vec) {
+    dequantize_kernel<T, true><<<grid, kThreads, 0, stream>>>(c, s, b, out, n, f);
+  } else {
+    dequantize_kernel<T, false><<<grid, kThreads, 0, stream>>>(c, s, b, out, n, f);
   }
 }
 
 template <typename T>
-void launch_dequantize(const void* codes, const float* s, const float* b, float* out,
-                       long long n, const omc::Format& f, cudaStream_t stream) {
-  const bool vec = reinterpret_cast<uintptr_t>(codes) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  const T* c = static_cast<const T*>(codes);
+void launch_quantize(const float* x, void* codes, long long n, const omc::Format& f,
+                     cudaStream_t stream) {
+  const bool vec = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(codes) % (4 * sizeof(T)) == 0;
+  T* c = static_cast<T*>(codes);
   if (vec) {
-    const unsigned grid = omc::grid_for(n / (16 / sizeof(T)), kThreads);
-    dequantize_kernel<T, true><<<grid, kThreads, 0, stream>>>(c, s, b, out, n, f);
+    quantize_kernel<T, true><<<omc::grid_for(n / 4, kThreads), kThreads, 0, stream>>>(x, c, n, f);
   } else {
-    dequantize_kernel<T, false><<<omc::grid_for(n, kThreads), kThreads, 0, stream>>>(
-        c, s, b, out, n, f);
+    quantize_kernel<T, false><<<omc::grid_for(n, kThreads), kThreads, 0, stream>>>(x, c, n, f);
   }
 }
 
@@ -151,7 +171,7 @@ void launch_quantize_stats(const float* x, void* codes, float* partials, float* 
   const dim3 grid{unsigned(blocks), unsigned(entries)};
   quantize_stats_kernel<T><<<grid, kThreads, 0, stream>>>(x, static_cast<T*>(codes), partials,
                                                           n_per_entry, f);
-  reduce_partials_kernel<<<entries, kThreads, 0, stream>>>(partials, sums, blocks);
+  omc::reduce_partials_kernel<<<entries, omc::kReduceThreads, 0, stream>>>(partials, sums, blocks);
 }
 
 }  // namespace
@@ -165,18 +185,36 @@ long long omc_quantize_stats_blocks(long long n_per_entry) {
   return (n_per_entry + kThreads * kStatsItems - 1) / (kThreads * kStatsItems);
 }
 
+// n values per entry, entries (s, b) pairs.
 int omc_dequantize(const void* codes, int container_bytes, const void* s, const void* b,
-                   void* out, long long n, int exp_bits, int mant_bits, void* stream) {
+                   void* out, long long n, int entries, int exp_bits, int mant_bits,
+                   void* stream) {
   const omc::Format f = omc::make_format(exp_bits, mant_bits);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* sp = static_cast<const float*>(s);
   const float* bp = static_cast<const float*>(b);
   float* o = static_cast<float*>(out);
+  if (entries <= 0 || entries > 65535) return int(cudaErrorInvalidValue);
   if (n <= 0) return int(cudaGetLastError());
   switch (container_bytes) {
-    case 1: launch_dequantize<uint8_t>(codes, sp, bp, o, n, f, st); break;
-    case 2: launch_dequantize<uint16_t>(codes, sp, bp, o, n, f, st); break;
-    case 4: launch_dequantize<uint32_t>(codes, sp, bp, o, n, f, st); break;
+    case 1: launch_dequantize<uint8_t>(codes, sp, bp, o, n, entries, f, st); break;
+    case 2: launch_dequantize<uint16_t>(codes, sp, bp, o, n, entries, f, st); break;
+    case 4: launch_dequantize<uint32_t>(codes, sp, bp, o, n, entries, f, st); break;
+    default: return int(cudaErrorInvalidValue);
+  }
+  return int(cudaGetLastError());
+}
+
+int omc_quantize(const void* x, void* codes, int container_bytes, long long n, int exp_bits,
+                 int mant_bits, void* stream) {
+  const omc::Format f = omc::make_format(exp_bits, mant_bits);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* xp = static_cast<const float*>(x);
+  if (n <= 0) return int(cudaGetLastError());
+  switch (container_bytes) {
+    case 1: launch_quantize<uint8_t>(xp, codes, n, f, st); break;
+    case 2: launch_quantize<uint16_t>(xp, codes, n, f, st); break;
+    case 4: launch_quantize<uint32_t>(xp, codes, n, f, st); break;
     default: return int(cudaErrorInvalidValue);
   }
   return int(cudaGetLastError());

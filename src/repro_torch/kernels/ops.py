@@ -3,7 +3,7 @@
 Counterpart of ``repro.kernels.ops``.  Dispatch is on the tensors' device:
 
   * CUDA tensors go to the hand-written Hopper kernels (``quantize``,
-    ``bitpack``), which launch or raise;
+    ``bitpack``, ``agg``), which launch or raise;
   * CPU tensors go to the plain versions (``ref``).
 
 There is no fallback: no switch sends a CUDA tensor to a plain version.
@@ -20,7 +20,9 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.core.formats import FloatFormat
+from repro_torch.core.pvt import pvt_from_sums
 
+from . import agg as _agg
 from . import bitpack as _bp
 from . import quantize as _q
 from . import ref
@@ -44,6 +46,17 @@ def _on_cuda(op: str, *tensors: Optional[torch.Tensor]) -> bool:
     if kinds == {"cpu"}:
         return False
     raise ValueError(f"{op}: tensors on {sorted(kinds)}; expected all on CUDA or all on the CPU")
+
+
+def quantize(x: torch.Tensor, fmt: FloatFormat) -> torch.Tensor:
+    """f32 -> codes only (the encode half of :func:`quantize_stats`)."""
+    if _on_cuda("quantize", x):
+        out = _q.quantize(x, fmt)
+        _LAUNCHES["quantize.cuda"] += 1
+    else:
+        out = ref.ref_quantize(x, fmt)
+        _LAUNCHES["quantize.ref"] += 1
+    return out
 
 
 def dequantize(codes: torch.Tensor, fmt: FloatFormat, s: Optional[torch.Tensor] = None,
@@ -90,3 +103,27 @@ def unpack(words: torch.Tensor, width: int, n: int,
         out = ref.ref_unpack(words, width, n, dtype)
         _LAUNCHES["unpack.ref"] += 1
     return out
+
+
+def fused_aggregate(srv_codes, srv_s, srv_b, cl_codes, cl_s, cl_b, weights, lr: float,
+                    fmt: FloatFormat, batch_axes: int = 0, pvt: bool = True):
+    """Compressed-domain server round for one variable (``repro.kernels.ops``'s
+    ``fused_aggregate``): ``(new_codes, s, b)`` in storage form, ``(s, b)``
+    solved from the kernel's masked PVT sums with the closed form, shaped
+    ``[*stack, 1, ...]`` for ``batch_axes > 0`` and 0-d otherwise; with
+    ``pvt=False``, ``(codes, 1, 0)``."""
+    if _on_cuda("fused_aggregate", srv_codes, cl_codes):
+        codes, sums = _agg.fused_aggregate(srv_codes, srv_s, srv_b, cl_codes, cl_s, cl_b,
+                                           weights, lr, fmt, batch_axes=batch_axes)
+        _LAUNCHES["fused_aggregate.cuda"] += 1
+    else:
+        codes, sums = ref.ref_fused_aggregate(srv_codes, srv_s, srv_b, cl_codes, cl_s, cl_b,
+                                              weights, lr, fmt, batch_axes=batch_axes)
+        _LAUNCHES["fused_aggregate.ref"] += 1
+    dev = srv_codes.device
+    if not pvt:
+        return codes, torch.ones((), device=dev), torch.zeros((), device=dev)
+    shape = tuple(srv_codes.shape)
+    s, b = pvt_from_sums(sums, srv_codes.numel() // sums.shape[0])
+    bshape = shape[:batch_axes] + (1,) * (len(shape) - batch_axes) if batch_axes else ()
+    return codes, s.reshape(bshape), b.reshape(bshape)

@@ -18,7 +18,14 @@ from repro_torch.core.formats import FloatFormat, decode, encode, narrow, value_
 from repro_torch.core.packing import bit_offsets, check_width, packed_words
 from repro_torch.core.pvt import pvt_apply
 
+from .agg import layout
+
 _M32 = 0xFFFFFFFF
+
+
+def ref_quantize(x: torch.Tensor, fmt: FloatFormat) -> torch.Tensor:
+    """f32 -> codes (round to nearest even, subnormal-aware, saturating)."""
+    return encode(x.to(torch.float32), fmt, quantize=True)
 
 
 def ref_dequantize(codes: torch.Tensor, fmt: FloatFormat, s: Optional[torch.Tensor] = None,
@@ -41,6 +48,35 @@ def ref_quantize_stats(x: torch.Tensor, fmt: FloatFormat,
     q = vq.reshape(v.shape)
     sums = torch.stack([v.sum(1), q.sum(1), (v * q).sum(1), (q * q).sum(1)], dim=-1)
     return codes, sums.reshape(lead + (4,))
+
+
+def ref_fused_aggregate(srv_codes, srv_s, srv_b, cl_codes, cl_s, cl_b, weights, lr: float,
+                        fmt: FloatFormat, *, batch_axes: int = 0
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(codes, sums[entries, 4]) of one variable's compressed-domain server
+    round (``agg.fused_aggregate``'s plain version).
+
+    The kernel's operations in the kernel's order: clients summed one after
+    another, each affine a multiply then an add, dead rows zeroed with
+    ``where`` before the weighted sum, the weight sum taken in client order
+    and floored at 1e-9.  So on the card the codes are the kernel's, bit for
+    bit; the sums differ by the order of the f32 reduction.
+    """
+    lay = layout(srv_codes, srv_s, srv_b, cl_codes, cl_s, cl_b, weights, batch_axes)
+    old = decode(lay.srv, fmt) * lay.srv_s[:, None] + lay.srv_b[:, None]
+    acc = torch.zeros_like(old)
+    wsum = torch.zeros((), dtype=torch.float32, device=old.device)
+    for c in range(lay.cl.shape[0]):
+        wc = lay.w[c]
+        x = decode(lay.cl[c], fmt) * lay.cl_s[c][:, None] + lay.cl_b[c][:, None]
+        x = torch.where(wc > 0, x, torch.zeros_like(x))
+        acc = acc + x * wc
+        wsum = wsum + wc
+    new = old + float(lr) * (acc / torch.clamp(wsum, min=1e-9) - old)
+    vq = value_quantize(new, fmt)
+    codes = encode(vq, fmt, quantize=False).reshape(srv_codes.shape)
+    sums = torch.stack([new.sum(1), vq.sum(1), (new * vq).sum(1), (vq * vq).sum(1)], dim=-1)
+    return codes, sums
 
 
 def ref_pack(codes: torch.Tensor, width: int) -> torch.Tensor:

@@ -1,10 +1,11 @@
-"""Shared model pieces: param specs, identity materializer, init, norms, RoPE.
+"""Shared model pieces: param specs, identity materializer, init, norms, RoPE,
+chunked cross-entropy and the layer loop.
 
 Port of ``repro.models.common``.  Models are plain functions over nested
 ``dict`` parameter trees keyed like the reference's.  Per-block parameters
 are stacked on a leading layer axis; where the reference scans over that
-axis under remat, the port runs a Python loop and lets each layer's decoded
-weights go when the next layer starts.
+axis under remat, the port runs a Python loop (``scan_blocks``), each layer
+under ``torch.utils.checkpoint`` when gradients are taken.
 
 ``ParamSpec`` keeps the reference's logical axes as plain data: the port has
 no sharding, but the number of axes a spec describes is what tells stacked
@@ -14,10 +15,13 @@ axes apart (``federated.state.n_stack_axes``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.core.tree import tree_items, tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,6 +52,9 @@ class Materializer:
     def leaf(self, x):
         """Materialize a single leaf."""
         return x
+
+
+IDENTITY_MAT = Materializer()
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, *,
@@ -83,3 +90,80 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0)
     cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
     x1, x2 = x.chunk(2, dim=-1)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, scale, bias, eps: float = 1e-6) -> torch.Tensor:
+    """LayerNorm over the last axis, population variance (``jnp.var``)."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = (xf - mu).square().mean(-1, keepdim=True)
+    return ((xf - mu) * torch.rsqrt(var + eps) * scale + bias).to(x.dtype)
+
+
+def group_norm(x: torch.Tensor, scale, bias, groups: int, eps: float = 1e-6) -> torch.Tensor:
+    """GroupNorm over channel groups of the last axis, per position (the
+    paper swaps BatchNorm for it: batch statistics do not carry across
+    non-IID clients)."""
+    *lead, c = x.shape
+    xf = x.float().reshape(*lead, groups, c // groups)
+    mu = xf.mean(-1, keepdim=True)
+    var = (xf - mu).square().mean(-1, keepdim=True)
+    xn = ((xf - mu) * torch.rsqrt(var + eps)).reshape(*lead, c)
+    return (xn * scale + bias).to(x.dtype)
+
+
+def softmax_xent_chunked(hidden: torch.Tensor, head_w: torch.Tensor, labels: torch.Tensor,
+                         mask: Optional[torch.Tensor] = None, chunk: int = 1024) -> torch.Tensor:
+    """Mean cross-entropy over (masked) positions, logits in sequence chunks.
+
+    The chunk shrinks until it divides the sequence, as in the reference;
+    the label's logit is picked by a masked sum over the vocabulary.
+    """
+    b, s, _ = hidden.shape
+    chunk = min(chunk, s)
+    while s % chunk:
+        chunk -= 1
+    if mask is None:
+        mask = torch.ones((b, s), dtype=torch.float32, device=hidden.device)
+    mask = mask.float()
+    vocab = torch.arange(head_w.shape[-1], device=hidden.device)
+    loss_sum = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    count = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(0, s, chunk):
+        logits = (hidden[:, i:i + chunk] @ head_w).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        onehot = vocab == labels[:, i:i + chunk, None]
+        picked = torch.where(onehot, logits, torch.zeros((), device=logits.device)).sum(-1)
+        m = mask[:, i:i + chunk]
+        loss_sum = loss_sum + ((lse - picked) * m).sum()
+        count = count + m.sum()
+    return loss_sum / torch.clamp(count, min=1.0)
+
+
+def scan_blocks(block_fn: Callable, stacked_params, x: torch.Tensor,
+                mat: Materializer) -> torch.Tensor:
+    """Loop over stacked layer params: ``carry = block_fn(carry, w)``.
+
+    Each layer is materialized inside its own ``checkpoint`` (non-reentrant),
+    so its decoded weights and activations are not kept for the backward
+    pass but recomputed there — the reference's remat around each scan step.
+    The stacked leaves are unbound once: their gradient is then one stack
+    of the per-layer gradients, not a full-size zero-filled tensor per layer.
+    """
+    n = next(tree_items(stacked_params))[1].shape[0]
+    slices = tree_map(lambda a: a.unbind(0), stacked_params)
+
+    def body(carry, i):
+        return block_fn(carry, mat(tree_map(lambda a: a[i], slices)))
+
+    for i in range(n):
+        if torch.is_grad_enabled():
+            x = checkpoint(body, x, i, use_reentrant=False)
+        else:
+            x = body(x, i)
+    return x
+
+
+def stack_layer_params(layer_list):
+    """``[{...}, {...}]`` -> ``{...}`` with leaves stacked on a new leading axis."""
+    return tree_map(lambda *xs: torch.stack(xs, 0), *layer_list)

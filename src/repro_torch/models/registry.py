@@ -1,7 +1,8 @@
 """Model families by name (port of ``repro.models.registry``).
 
-A family module exposes ``init``, ``param_specs``, ``prefill``,
-``decode_step`` and ``init_decode_state``.  Only the dense transformer is
+A family module exposes ``init`` and ``param_specs``; a servable one also
+``prefill``, ``decode_step`` and ``init_decode_state``, a trainable one
+``loss``.  The dense transformer (serve) and the conformer (train) are
 ported; the other families are queued in ROADMAP.md (queue A10).
 """
 
@@ -10,9 +11,9 @@ from __future__ import annotations
 from types import ModuleType
 from typing import Dict
 
-from . import transformer
+from . import conformer, transformer
 
-_FAMILIES: Dict[str, ModuleType] = {"transformer": transformer}
+_FAMILIES: Dict[str, ModuleType] = {"transformer": transformer, "conformer": conformer}
 
 SERVABLE = {"transformer"}
 

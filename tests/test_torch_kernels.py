@@ -1,4 +1,4 @@
-"""PyTorch port vs the JAX reference: the plain versions of the four kernels.
+"""PyTorch port vs the JAX reference: the plain versions of the six kernels.
 
 Each plain version (``repro_torch.kernels.ref``, the CPU path of
 ``repro_torch.kernels.ops``) is held against ``repro.kernels.ref`` and
@@ -11,19 +11,38 @@ Tolerances: codes, bitstreams and decodes bit-exact; PVT sums within
 rtol=atol=1e-4 (test_kernels.py's bound: f32 sums taken in another order);
 the affine ``decode·s + b`` within the fused-vs-unfused multiply-add bound
 (XLA may contract it into an FMA, ROADMAP C5; see _assert_affine_close).
+``fused_aggregate``'s codes equal the reference's except on a
+round-to-nearest-even tie fringe of at most 0.5%, where they differ by one
+code (test_kernels.py:129-133's gate: f32 sums over clients taken in
+another order), and its (s, b) within rtol=2e-5, atol=2e-6.
+
+The tests marked ``cuda`` hold each CUDA kernel against its plain version
+on the card (bit-exact codes, streams and decodes; sums within rtol=1e-4);
+without a card they skip.  They need no JAX:
+``pytest tests/test_torch_kernels.py -m cuda`` runs them on a machine with
+the card.
 """
 
-import jax.numpy as jnp
+import math
+
 import numpy as np
 import pytest
 import torch
 
-from repro.core import packing as jpacking
-from repro.core.formats import FloatFormat as JFormat
-from repro.kernels import ops as jops
-from repro.kernels import ref as jref
+try:  # the reference; a machine with the card has no JAX, and runs `-m cuda` only
+    import jax.numpy as jnp
+    from repro.core import packing as jpacking
+    from repro.core.formats import FloatFormat as JFormat
+    from repro.kernels import agg as jagg
+    from repro.kernels import ops as jops
+    from repro.kernels import ref as jref
+except ImportError:
+    jnp = None
+
 from repro_torch.core import packing
 from repro_torch.core.formats import FloatFormat
+from repro_torch.core.store import bit_equal
+from repro_torch.kernels import agg
 from repro_torch.kernels import bitpack as bk
 from repro_torch.kernels import ops
 from repro_torch.kernels import quantize as qk
@@ -188,3 +207,152 @@ def test_dispatch_counts_and_no_fallback():
             call()
     with pytest.raises(ValueError, match="expected all on CUDA or all on the CPU"):
         ops.dequantize(codes, fmt, torch.ones((), device="meta"))
+
+
+@pytest.mark.parametrize("name", FMTS)
+@pytest.mark.parametrize("shape", [(1001,), (37, 53), (2, 3, 65)], ids=str)
+def test_quantize_plain_matches_reference_and_quantize_stats(name, shape):
+    fmt, jfmt = FloatFormat.parse(name), JFormat.parse(name)
+    x = _x(shape, seed=sum(shape))
+    x.reshape(-1)[4:6] = [np.nan, -np.inf]
+    codes = ref.ref_quantize(torch.from_numpy(x), fmt)
+    assert codes.dtype == fmt.container_dtype
+    np.testing.assert_array_equal(codes.numpy(),
+                                  np.asarray(jref.ref_quantize(jnp.asarray(x), jfmt)))
+    np.testing.assert_array_equal(
+        codes.numpy(), np.asarray(jops.quantize(jnp.asarray(x), jfmt, force_interpret=True)))
+    assert bit_equal(codes, ref.ref_quantize_stats(torch.from_numpy(x), fmt)[0])
+
+
+def _fused_case(name, shape, batch_axes, cohort=5, seed=0, dead=(1,)):
+    """Server and client variables in storage form from a numpy seed, and a
+    survival mask.  Dead clients carry a genuine NaN code, so the where-guard
+    is what keeps them out of the mean."""
+    fmt = FloatFormat.parse(name)
+    rng = np.random.default_rng(seed)
+    srv = ref.ref_quantize(torch.from_numpy(rng.standard_normal(shape).astype(np.float32)), fmt)
+    cl = ref.ref_quantize(torch.from_numpy(
+        (rng.standard_normal((cohort,) + shape) * 0.7).astype(np.float32)), fmt)
+    w = np.ones((cohort,), np.float32)
+    nan_code = (((1 << fmt.exp_bits) - 1) << fmt.mant_bits) | (1 << (fmt.mant_bits - 1))
+    for c in dead:
+        w[c] = 0.0
+        cl[c] = nan_code
+    lead = tuple(shape[:batch_axes])
+    arrays = [srv.numpy(), rng.normal(1.0, 0.05, lead).astype(np.float32),
+              rng.normal(0.0, 0.01, lead).astype(np.float32), cl.numpy(),
+              rng.normal(1.0, 0.05, (cohort,) + lead).astype(np.float32),
+              rng.normal(0.0, 0.01, (cohort,) + lead).astype(np.float32), w]
+    return ([torch.from_numpy(np.array(a)) for a in arrays],
+            None if jnp is None else [jnp.asarray(a) for a in arrays], fmt,
+            None if jnp is None else JFormat.parse(name))
+
+
+def _assert_codes_close(got, want):
+    g, w = got.astype(np.int64), want.astype(np.int64)
+    diff = g != w
+    assert diff.mean() <= 5e-3, f"{diff.sum()}/{diff.size} codes differ"
+    assert np.abs(g - w)[diff].max(initial=0) <= 1, "non-adjacent code drift"
+
+
+@pytest.mark.parametrize("name", FMTS)
+@pytest.mark.parametrize("shape,batch_axes", [((37, 19), 0), ((3, 40, 17), 1), ((5,), 0),
+                                              ((2, 3, 130), 2), ((1001,), 0)],
+                         ids=["flat2d", "stacked1", "tiny", "stacked2", "odd_tail"])
+def test_fused_aggregate_plain_matches_reference(name, shape, batch_axes):
+    """Against the reference's oracle everywhere, and against its Pallas body
+    in interpret mode in S1E3M7 and for the stacked leaf in every container
+    (interpret mode takes seconds a case)."""
+    case, jcase, fmt, jfmt = _fused_case(name, shape, batch_axes)
+    codes, s, b = ops.fused_aggregate(*case, 0.5, fmt, batch_axes=batch_axes)
+    wants = [jref.ref_fused_aggregate(*jcase, 0.5, jfmt, batch_axes=batch_axes)]
+    if name == "S1E3M7" or shape == (3, 40, 17):
+        wants.append(jagg.fused_aggregate(*jcase, 0.5, jfmt, batch_axes=batch_axes,
+                                          interpret=True))
+    for want in wants:
+        assert codes.shape == shape and codes.dtype == fmt.container_dtype
+        _assert_codes_close(codes.numpy(), np.asarray(want[0]))
+        assert s.shape == want[1].shape and b.shape == want[2].shape
+        assert torch.isfinite(s).all() and torch.isfinite(b).all()
+        np.testing.assert_allclose(s.numpy(), np.asarray(want[1]), rtol=2e-5, atol=2e-6)
+        np.testing.assert_allclose(b.numpy(), np.asarray(want[2]), rtol=2e-5, atol=2e-6)
+
+
+def test_fused_aggregate_all_dead_is_pure_server_decay():
+    """Every client dead (all-NaN rows): the mean is 0 and the round is
+    old + lr·(0 − old); the reference's own bound, 6e-3."""
+    case, jcase, fmt, jfmt = _fused_case("S1E3M7", (64,), 0, cohort=4, dead=(0, 1, 2, 3))
+    codes, s, b = ops.fused_aggregate(*case, 0.25, fmt)
+    old = ref.ref_dequantize(case[0], fmt, case[1], case[2]).numpy()
+    got = ref.ref_dequantize(codes, fmt, s, b).numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, 0.75 * old, atol=6e-3)
+    want = jops.fused_aggregate(*jcase, 0.25, jfmt)
+    _assert_codes_close(codes.numpy(), np.asarray(want[0]))
+
+
+def test_fused_aggregate_pvt_off_returns_identity_affine():
+    case, jcase, fmt, jfmt = _fused_case("S1E3M7", (33,), 0)
+    codes, s, b = ops.fused_aggregate(*case, 0.5, fmt, pvt=False)
+    assert s.shape == () and b.shape == () and float(s) == 1.0 and float(b) == 0.0
+    want = jops.fused_aggregate(*jcase, 0.5, jfmt, pvt=False)
+    _assert_codes_close(codes.numpy(), np.asarray(want[0]))
+
+
+def test_fused_aggregate_moved_bytes_has_no_tile_padding():
+    """conformer_s' [17, 512, 2048] leaf at cohort 8 in u16: (8 + 2) planes of
+    17,825,792 codes, plus 2·17 + 2·8·17 + 8 + 1 scalars and 17 sums of 4."""
+    fmt = FloatFormat.parse("S1E3M7")
+    n = 17 * 512 * 2048
+    got = agg.fused_aggregate_moved_bytes(8, n, fmt, stack_entries=17)
+    assert got == 10 * n * 2 + 4 * (2 * 17 + 2 * 8 * 17 + 8 + 1) + 4 * 17 * 4
+    assert jagg.fused_aggregate_moved_bytes(8, n, JFormat.parse("S1E3M7"),
+                                            stack_entries=17) >= got
+
+
+# ---------------------------------------------------------------------------
+# On the card: each CUDA kernel against its plain version
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels are built with nvcc and run on the card")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", FMTS)
+@pytest.mark.parametrize("shape,batch_axes", [((1001,), 0), ((3, 1001), 1), ((2, 3, 65), 2)],
+                         ids=str)
+def test_cuda_codec_kernels_match_plain(cuda, name, shape, batch_axes):
+    fmt = FloatFormat.parse(name)
+    x = torch.from_numpy(_x(shape, seed=sum(shape))).to(cuda)
+    codes, sums = qk.quantize_stats(x, fmt, batch_axes)
+    rcodes, rsums = ref.ref_quantize_stats(x, fmt, batch_axes)
+    assert bit_equal(codes, rcodes)
+    torch.testing.assert_close(sums, rsums, rtol=1e-4, atol=1e-4)
+    assert bit_equal(qk.quantize(x, fmt), rcodes)
+    # one (s, b) pair per stacked entry, shaped [*stack, 1, ...] as storage holds them
+    lead = shape[:batch_axes]
+    bshape = lead + (1,) * (len(shape) - batch_axes)
+    s = torch.linspace(0.9, 1.1, max(1, math.prod(lead)), device=cuda).reshape(bshape)
+    b = torch.linspace(-0.01, 0.01, max(1, math.prod(lead)), device=cuda).reshape(bshape)
+    assert bit_equal(qk.dequantize(codes, fmt, s, b), ref.ref_dequantize(codes, fmt, s, b))
+    words = bk.pack(codes.reshape(-1), fmt.bits)
+    assert bit_equal(words, ref.ref_pack(codes.reshape(-1), fmt.bits))
+    assert bit_equal(bk.unpack(words, fmt.bits, codes.numel(), codes.dtype), codes.reshape(-1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", FMTS)
+@pytest.mark.parametrize("shape,batch_axes", [((37, 19), 0), ((3, 40, 17), 1),
+                                              ((2, 3, 130), 2)], ids=str)
+def test_cuda_fused_aggregate_matches_plain(cuda, name, shape, batch_axes):
+    case, _, fmt, _ = _fused_case(name, shape, batch_axes)
+    case = [t.to(cuda) for t in case]
+    codes, sums = agg.fused_aggregate(*case, 0.7, fmt, batch_axes=batch_axes)
+    rcodes, rsums = ref.ref_fused_aggregate(*case, 0.7, fmt, batch_axes=batch_axes)
+    assert bit_equal(codes, rcodes)
+    torch.testing.assert_close(sums, rsums, rtol=1e-4, atol=1e-4)
