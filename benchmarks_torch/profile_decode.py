@@ -2,6 +2,7 @@
 """Where a decode step's time goes: device kernel time against host wall time.
 
     python3 benchmarks_torch/profile_decode.py            # qwen2.5-3b, full width, on the card
+    python3 benchmarks_torch/profile_decode.py --arch recurrentgemma-2b
     python3 benchmarks_torch/profile_decode.py --smoke --device cpu
 
 Builds the session with ``repro_torch.launch.serve.build_session`` (random
@@ -12,8 +13,8 @@ tokens, runs two warm decode steps, times three more on the host clock
 the profiler, device busy ms per step (the sum of the kernels' durations on
 the card; one stream, so kernels do not overlap), the device's idle share
 under the profiler, the top-level torch ops dispatched per step, the
-``dequantize`` launches per step, and the kernels that took the most device
-time.
+``dequant_matmul`` and ``dequantize`` launches per step, the peak device
+memory of the run, and the kernels that took the most device time.
 """
 
 from __future__ import annotations
@@ -38,12 +39,13 @@ STEPS = 3
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--smoke", action="store_true", help="qwen2.5-3b's 2-layer smoke config")
+    ap.add_argument("--arch", default="qwen2.5-3b", help="a servable arch (serve.py's --arch)")
+    ap.add_argument("--smoke", action="store_true", help="the arch's smoke config")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
     torch.backends.cuda.matmul.allow_tf32 = False
     sess, gen = serve.build_session(serve.parse_args(
-        ["--device", args.device] + (["--smoke"] if args.smoke else [])))
+        ["--arch", args.arch, "--device", args.device] + (["--smoke"] if args.smoke else [])))
     device, cfg = sess.device, sess.cfg
     toks = torch.randint(0, cfg.vocab, (4, 32), generator=gen, device=device)
     cache, logits = sess.prefill(dict(tokens=toks), sess.init_cache(4, 64))
@@ -77,14 +79,18 @@ def main() -> None:
     kernels = [(name, ms / STEPS) for name, ms in per_kernel.items()]
     busy_ms = sum(ms for _, ms in kernels)
     on_card = device.type == "cuda"
+    launches = ops.launch_counts()
+    backend = "cuda" if on_card else "ref"
     print(json.dumps(dict(
-        arch="qwen2.5-3b", smoke=args.smoke, device=str(device),
+        arch=args.arch, smoke=args.smoke, device=str(device),
         device_name=torch.cuda.get_device_name(0) if on_card else "cpu",
         steps=STEPS, wall_ms_per_step=wall_ms, profiled_wall_ms_per_step=profiled_ms,
         device_busy_ms_per_step=busy_ms if on_card else None,
         device_idle_share=(1 - busy_ms / profiled_ms) if on_card else None,
         top_level_ops_per_step=top_ops / STEPS,
-        dequantize_launches_per_step=ops.launch_counts().get("dequantize.cuda", 0) / STEPS,
+        dequant_matmul_launches_per_step=launches.get(f"dequant_matmul.{backend}", 0) / STEPS,
+        dequantize_launches_per_step=launches.get(f"dequantize.{backend}", 0) / STEPS,
+        max_memory_allocated=torch.cuda.max_memory_allocated() if on_card else None,
         top_kernels=[dict(name=k[:80], ms_per_step=ms)
                      for k, ms in sorted(kernels, key=lambda kv: -kv[1])[:8]])))
 

@@ -8,27 +8,42 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
   1. Environment: the card's name and power limit (nvidia-smi), torch and
      CUDA versions, and the build of the kernels from ``src/repro_torch/
      kernels/csrc`` (one nvcc per source, in parallel, sm_90a), with its time.
-  2. Each of the six kernels against its plain PyTorch version, on the card:
+  2. Each of the seven kernels against its plain PyTorch version, on the card:
      at the serve path's shapes (qwen2.5-3b's MLP slice [2048, 11008] and
      embedding [151936, 2048] in S1E3M7), at the training path's shapes
      (``quantize`` on a transport stack [8, 17, 512, 2048] and a storage leaf
      [17, 512, 2048]; ``fused_aggregate`` on conformer_s leaves [17, 512, 2048]
      and [17, 512, 512] stacked, and [512, 1024] flat, at cohort 8) and at
      small odd-tail shapes in S1E2M3 (u8) and S1E4M14 (u32): codes, streams
-     and decodes bit-exact, PVT sums within rtol=1e-4.  Kernel and plain
+     and decodes bit-exact, PVT sums within rtol=1e-4.  ``dequant_matmul``
+     at the serve paths' products in S1E3M7 (decode [4, 2048]x[2048, 11008],
+     [4, 11008]x[11008, 2048], [4, 2048]x[2048, 256], [4, 2560]x[2560, 7680];
+     prefill [128, 2048]x[2048, 11008]), odd tails [3, 37]x[37, 53] in u8 and
+     u32, and per-entry (s, b) of a doubly stacked leaf, all with b != 0:
+     elementwise within 2e-5 * (|A| @ |s*dec(W) + b|).  Kernel and plain
      version are timed with CUDA events (3 warm-ups, median of 20, L2
-     flushed before each launch).
+     flushed before each launch); beside ``dequant_matmul``, ``torch.matmul``
+     on the pre-decoded f32 weight ("matmul alone", not the same function).
   3. Serve at full width: ``repro_torch.launch.serve.run`` on qwen2.5-3b,
      S1E3M7, --wire-roundtrip, batch 4, prompt 32, 16 new tokens — init on
      the card, compress (quantize_stats), encode (pack), hot-swap (unpack,
-     checked bit-identical), prefill and decode (dequantize) — then three more
-     request batches through ``ServeSession.generate``.  Launch counters are
-     zeroed just before and read just after: every serve kernel must have
-     launched, and no plain version may have run.
+     checked bit-identical), prefill and decode (dequant_matmul for the 252
+     block matrices, dequantize for the embedding rows and the tied head) —
+     then three more request batches through ``ServeSession.generate``.
+     Launch counters are zeroed just before and read just after: 252
+     ``dequant_matmul`` and 2 ``dequantize`` launches per forward pass, every
+     serve kernel launched, no plain version run.
   4. Card against CPU at full width: the served storage tree cut to 2 layers,
      prefill and 2 decode steps on the card (kernels) and on the CPU (plain
      versions); the largest logit difference must be <= 1e-3.
-  5. Federated training at full width through the engine
+  5. Serve recurrentgemma-2b (griffin) at full width the same way (26 layers,
+     d 2560, vocab 256,000; batch 4, prompt 32, 16 new tokens, with the wire
+     roundtrip): 200 ``dequant_matmul`` and 20 ``dequantize`` launches per
+     forward pass, no plain version run, payload ratio <= 0.35.
+  6. Card against CPU for griffin: its storage cut to 5 layers (the first
+     super block and the two extra recurrent blocks) at full width, prefill
+     and 2 decode steps; the largest logit difference must be <= 1e-3.
+  7. Federated training at full width through the engine
      (``engine.run_training_vectorized``, ``engine.run_round_vectorized``):
      conformer_s (17 layers, d 512), random weights from a seed on the card,
      the synthetic frame task (80-dim frames, 1024 classes, 256 frames, 16
@@ -40,10 +55,10 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
      run: ``fused_aggregate`` 13 launches per fused round, ``quantize`` in the
      PVT-off run, ``quantize_stats`` and ``dequantize`` in every run, no
      plain version anywhere.
-  6. Card against CPU for training: the same configuration cut to 2 layers
+  8. Card against CPU for training: the same configuration cut to 2 layers
      at full width, cohort 4, 1 fused round of 1 local step, on the card
      (kernels) and on the CPU (plain versions): ledgers equal, trees within
-     the gate of phase 5.
+     the gate of phase 7.
 
 It then prints one JSON line describing each kernel and, last, the line
 ``{"ok": true, "device": {...}}``.  f32 matmuls run in full f32: TF32 is
@@ -67,11 +82,11 @@ sys.path.insert(0, str(ROOT / "src"))
 import torch  # noqa: E402
 
 from repro_torch.api.session import ServeSession  # noqa: E402
-from repro_torch.configs import conformer_s, qwen2_5_3b  # noqa: E402
+from repro_torch.configs import conformer_s, qwen2_5_3b, recurrentgemma_2b  # noqa: E402
 from repro_torch.core import packing, prng  # noqa: E402
 from repro_torch.core.formats import FloatFormat, narrow, widen  # noqa: E402
 from repro_torch.core.omc import OMCConfig  # noqa: E402
-from repro_torch.core.store import bit_equal, decompress_tree  # noqa: E402
+from repro_torch.core.store import bit_equal, compress_variable, decompress_tree  # noqa: E402
 from repro_torch.core.tree import tree_items, tree_map  # noqa: E402
 from repro_torch.data.synthetic import make_frame_task  # noqa: E402
 from repro_torch.federated import accounting, engine, simulate  # noqa: E402
@@ -79,17 +94,21 @@ from repro_torch.federated.cohort import CohortPlan  # noqa: E402
 from repro_torch.federated.state import compress_params  # noqa: E402
 from repro_torch.kernels import agg  # noqa: E402
 from repro_torch.kernels import bitpack as bk  # noqa: E402
+from repro_torch.kernels import dequant_matmul as dm  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import quantize as qk  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
-from repro_torch.models import conformer, transformer  # noqa: E402
+from repro_torch.models import conformer, griffin, transformer  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
+F32_FLOP_PER_S = 67e12  # H100 SXM f32 rate outside the tensor cores (NVIDIA data sheet)
 FMT = FloatFormat.parse("S1E3M7")
 CFG = qwen2_5_3b.config()
 MLP_SLICE = (CFG.d_model, CFG.d_ff)  # one layer's w1 / w3
 EMBED = (CFG.vocab, CFG.d_model)
 STACKED_MLP = (CFG.n_layers, CFG.d_model, CFG.d_ff)  # a stacked w1 leaf
+GCFG = recurrentgemma_2b.config()
+DECODE_W1 = (4, CFG.d_model, CFG.d_ff)  # (M, K, N) of a decode step's w1 product
 TRAIN_CFG = conformer_s.config()
 TRAIN_LEAF = (TRAIN_CFG.n_layers, TRAIN_CFG.d_model, TRAIN_CFG.d_ff)  # stacked w1 / w2ᵀ
 COHORT = 8
@@ -98,14 +117,22 @@ SOURCES = dict(quantize_stats="src/repro_torch/kernels/csrc/quantize.cu",
                pack="src/repro_torch/kernels/csrc/bitpack.cu",
                unpack="src/repro_torch/kernels/csrc/bitpack.cu",
                quantize="src/repro_torch/kernels/csrc/quantize.cu",
-               fused_aggregate="src/repro_torch/kernels/csrc/agg.cu")
+               fused_aggregate="src/repro_torch/kernels/csrc/agg.cu",
+               dequant_matmul="src/repro_torch/kernels/csrc/dequant_matmul.cu")
 REPLACES = dict(quantize_stats="src/repro/kernels/quantize.py:116",
                 dequantize="src/repro/kernels/quantize.py:93",
                 pack="src/repro/kernels/bitpack.py:96",
                 unpack="src/repro/kernels/bitpack.py:120",
                 quantize="src/repro/kernels/quantize.py:77",
-                fused_aggregate="src/repro/kernels/agg.py:114")
-SERVE_KERNELS = ("quantize_stats", "dequantize", "pack", "unpack")
+                fused_aggregate="src/repro/kernels/agg.py:114",
+                dequant_matmul="src/repro/kernels/dequant_matmul.py:58")
+SERVE_KERNELS = ("quantize_stats", "dequantize", "pack", "unpack", "dequant_matmul")
+# launches per forward pass: block matrices through dequant_matmul; the
+# embedding rows, the tied head and griffin's 18 conv_w through dequantize
+QWEN_PER_FORWARD = dict(dequant_matmul=7 * CFG.n_layers, dequantize=2)
+GRIFFIN_PER_FORWARD = dict(
+    dequant_matmul=8 * (GCFG.n_layers - GCFG.n_super) + 7 * GCFG.n_super,
+    dequantize=GCFG.n_layers - GCFG.n_super + 2)
 TREE_MAX, TREE_MEAN = 6e-3, 1e-3  # the reference engine's fused-vs-unfused gate
 
 
@@ -342,6 +369,41 @@ def check_stacked_mlp(timer) -> dict:
     return out
 
 
+def check_dequant_matmul(mkn, fmt, timer=None, seed=0, entry=()):
+    """``dequant_matmul`` against its plain version, elementwise within
+    ``2e-5 * (|A| @ |W_eff|)``: random weights compressed on the card
+    (``entry`` indexes a stacked leaf of that many leading entries, each
+    with its own (s, b)), the bias moved off zero."""
+    m, k, n = mkn
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    w = torch.randn(tuple(entry) + (k, n), generator=g, device="cuda") * 0.02
+    v = compress_variable(w, fmt, batch_axes=len(entry))
+    del w
+    for i in entry:
+        v = v[i - 1]  # the last entry of each stacked axis
+    codes, s, b = v.codes, v.s, v.b + 0.003
+    a = torch.randn((m, k), generator=g, device="cuda")
+    got = dm.dequant_matmul(a, codes, fmt, s, b)
+    torch.cuda.synchronize()
+    want = ref.ref_dequant_matmul(a, codes, fmt, s, b)
+    w_eff = ref.ref_dequantize(codes, fmt, s, b)
+    bound = 2e-5 * (a.abs() @ w_eff.abs())
+    err = (got - want).abs()
+    require(bool((err <= bound).all()), f"dequant_matmul differs {fmt.name} {mkn} entry {entry}: "
+            f"max err {err.max().item()} over a bound of {bound.min().item()}")
+    out = dict(shape=[m, k, n], fmt=fmt.name, max_abs_err=err.max().item(),
+               max_err_over_bound=(err / bound).max().item())
+    if timer:
+        ops_ms = dm.dequant_matmul_flops(m, k, n) / F32_FLOP_PER_S * 1e3
+        bytes_ms = bound_ms(dm.dequant_matmul_moved_bytes(m, k, n, fmt))
+        out.update(ms=timer(lambda: dm.dequant_matmul(a, codes, fmt, s, b)),
+                   plain_ms=timer(lambda: ref.ref_dequant_matmul(a, codes, fmt, s, b)),
+                   bound_ms=max(ops_ms, bytes_ms),
+                   bound_by="operations" if ops_ms > bytes_ms else "bytes",
+                   matmul_alone_ms=timer(lambda: torch.matmul(a, w_eff)))
+    return out
+
+
 def phase_kernels() -> dict:
     timer = Timer()
     results = {k: [] for k in SOURCES}
@@ -397,11 +459,23 @@ def phase_kernels() -> dict:
                               ((TRAIN_CFG.d_model, TRAIN_CFG.n_classes), 0)):
         results["fused_aggregate"].append(check_fused_aggregate(shape, batch_axes, FMT, timer))
         torch.cuda.empty_cache()
+    # dequant_matmul: odd tails in u8 and u32, per-entry (s, b) of a doubly
+    # stacked leaf, then the serve paths' products in S1E3M7, timed
+    for fmt in (FloatFormat.parse("S1E2M3"), FloatFormat.parse("S1E4M14"), FMT):
+        results["dequant_matmul"].append(check_dequant_matmul((3, 37, 53), fmt, seed=1))
+    results["dequant_matmul"].append(check_dequant_matmul((4, 256, 384), FMT, seed=2,
+                                                          entry=(2, 2)))
+    for mkn in (DECODE_W1, (4, CFG.d_ff, CFG.d_model), (4, CFG.d_model, CFG.kv_dim),
+                (128, CFG.d_model, CFG.d_ff), (4, GCFG.d_model, GCFG.d_ff)):
+        results["dequant_matmul"].append(check_dequant_matmul(mkn, FMT, timer, seed=sum(mkn)))
+        torch.cuda.empty_cache()
     for name, rows in results.items():
         for r in rows:
             if "ms" in r:
-                print(f"  {name:15s} {str(r['shape']):20s} kernel {r['ms']:.3f} ms  "
-                      f"plain {r['plain_ms']:.3f} ms  bound {r['bound_ms']:.3f} ms")
+                print(f"  {name:15s} {str(r['shape']):20s} kernel {r['ms']:.4f} ms  "
+                      f"plain {r['plain_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms"
+                      + (f"  matmul alone {r['matmul_alone_ms']:.4f} ms"
+                         if "matmul_alone_ms" in r else ""))
     print(f"  stacked w1 {stacked}")
     print(f"kernels match their plain versions: "
           f"{ {k: len(v) for k, v in results.items()} } cases")
@@ -409,50 +483,80 @@ def phase_kernels() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# 3. serve at full width, 4. card against CPU
+# 3-6. serve at full width, card against CPU
 # ---------------------------------------------------------------------------
 
 
-def phase_serve() -> dict:
+def require_per_forward(counts: dict, run: str, forwards: int, per_forward: dict) -> None:
+    """Exact launches of each op for ``forwards`` forward passes, every serve
+    kernel launched, and no plain version run."""
+    require(not any(k.endswith(".ref") for k in counts), f"{run}: a plain version ran: {counts}")
+    for op in SERVE_KERNELS:
+        require(counts.get(f"{op}.cuda", 0) > 0, f"{run}: {op} kernel never launched")
+    for op, n in per_forward.items():
+        got = counts.get(f"{op}.cuda", 0)
+        require(got == n * forwards, f"{run}: {op} launched {got} times in {forwards} forward "
+                f"passes, expected {n} per pass: {counts}")
+
+
+def serve_full_width(arch: str, more_batches: int) -> dict:
+    """``serve.run`` at full width with the wire roundtrip, batch 4, prompt 32,
+    16 new tokens, then ``more_batches`` request batches through
+    ``ServeSession.generate``; counters zeroed just before, read just after."""
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     report = serve.run(serve.parse_args([
-        "--arch", "qwen2.5-3b", "--fmt", FMT.name, "--wire-roundtrip", "--batch", "4",
+        "--arch", arch, "--fmt", FMT.name, "--wire-roundtrip", "--batch", "4",
         "--prompt-len", "32", "--gen", "16", "--quiet"]))
     sess = report.pop("session")
-    require(report["swap_bit_identical"], "hot-swapped tree differs from the one encoded")
+    require(report["swap_bit_identical"], f"{arch}: hot-swapped tree differs from the one encoded")
+    require(report["payload_ratio"] <= 0.35, f"{arch}: payload ratio {report['payload_ratio']}")
+    vocab = sess.cfg.vocab
     g = torch.Generator(device="cuda").manual_seed(1)
     t0 = time.perf_counter()
-    for _ in range(3):
-        toks = torch.randint(0, CFG.vocab, (4, 32), generator=g, device="cuda")
+    for _ in range(more_batches):
+        toks = torch.randint(0, vocab, (4, 32), generator=g, device="cuda")
         _, out = sess.generate(dict(tokens=toks), sess.init_cache(4, 4 * (32 + 16)), 16)
-        require(out.shape == (4, 16) and bool(((out >= 0) & (out < CFG.vocab)).all()),
-                "generate returned bad tokens")
+        require(out.shape == (4, 16) and bool(((out >= 0) & (out < vocab)).all()),
+                f"{arch}: generate returned bad tokens")
     torch.cuda.synchronize()
     more_ms = (time.perf_counter() - t0) * 1e3
-    counts = ops.launch_counts()
-    for op in SERVE_KERNELS:
-        require(counts.get(f"{op}.cuda", 0) > 0, f"{op} kernel never launched on the main path")
-    require(not any(k.endswith(".ref") for k in counts), f"a plain version ran: {counts}")
-    report.update(more_batches_ms=more_ms, max_memory_allocated=torch.cuda.max_memory_allocated(),
-                  launch_counts=counts, serve_stats=sess.serve_stats())
+    report.update(forward_passes=1 + 16 + 16 * more_batches, more_batches_ms=more_ms,
+                  max_memory_allocated=torch.cuda.max_memory_allocated(),
+                  launch_counts=ops.launch_counts(), serve_stats=sess.serve_stats())
     report.pop("tokens")
     for k in ("num_params", "payload_bytes", "fp32_bytes", "payload_ratio", "roundtrip_ms",
               "prefill_ms", "decode_ms_per_token", "tok_per_s", "more_batches_ms",
-              "max_memory_allocated", "launch_counts"):
-        print(f"  serve {k}: {report[k]}")
+              "max_memory_allocated", "forward_passes", "launch_counts"):
+        print(f"  {arch} {k}: {report[k]}")
     return dict(report=report, session=sess)
 
 
-def phase_card_vs_cpu(sess: ServeSession) -> float:
-    cfg2 = dataclasses.replace(CFG, n_layers=2)
-    st = sess.storage
-    cut = dict(embed=st["embed"], final_norm=st["final_norm"],
-               blocks={k: v[:2] for k, v in st["blocks"].items()})
-    gpu = ServeSession(transformer, cfg2, cut)
-    cpu = ServeSession(transformer, cfg2, tree_map(lambda x: x.to("cpu"), cut))
+def phase_serve() -> dict:
+    served = serve_full_width("qwen2.5-3b", more_batches=3)
+    report = served["report"]
+    require_per_forward(report["launch_counts"], "qwen2.5-3b", report["forward_passes"],
+                        QWEN_PER_FORWARD)
+    return served
+
+
+def phase_serve_griffin() -> dict:
+    served = serve_full_width("recurrentgemma-2b", more_batches=0)
+    report = served["report"]
+    require(report["num_params"] == 2_894_528_000, f"griffin params {report['num_params']}")
+    require_per_forward(report["launch_counts"], "recurrentgemma-2b", report["forward_passes"],
+                        GRIFFIN_PER_FORWARD)
+    return served
+
+
+def card_vs_cpu(run: str, family, cfg, cut) -> float:
+    """Prefill and 2 decode steps of ``cut`` on the card (kernels) and on the
+    CPU (plain versions); the largest logit difference must be <= 1e-3."""
+    gpu = ServeSession(family, cfg, cut)
+    cpu = ServeSession(family, cfg, tree_map(lambda x: x.to("cpu"), cut))
     g = torch.Generator(device="cuda").manual_seed(2)
-    toks = torch.randint(0, CFG.vocab, (4, 32), generator=g, device="cuda")
+    toks = torch.randint(0, cfg.vocab, (4, 32), generator=g, device="cuda")
     cg, lg = gpu.prefill(dict(tokens=toks), gpu.init_cache(4, 64))
     cc, lc = cpu.prefill(dict(tokens=toks.cpu()), cpu.init_cache(4, 64))
     diffs = [(lg.cpu() - lc).abs().max().item()]
@@ -462,13 +566,33 @@ def phase_card_vs_cpu(sess: ServeSession) -> float:
         cc, lc = cpu.decode_step(cc, tok.cpu())
         diffs.append((lg.cpu() - lc).abs().max().item())
     worst = max(diffs)
-    print(f"  card vs CPU, 2 layers at full width: max |logit diff| per step {diffs}")
-    require(worst <= 1e-3, f"card and CPU logits differ by {worst}")
+    print(f"  {run}: card vs CPU, max |logit diff| per step {diffs}")
+    require(worst <= 1e-3, f"{run}: card and CPU logits differ by {worst}")
     return worst
 
 
+def phase_card_vs_cpu(sess: ServeSession) -> float:
+    st = sess.storage
+    cut = dict(embed=st["embed"], final_norm=st["final_norm"],
+               blocks={k: v[:2] for k, v in st["blocks"].items()})
+    return card_vs_cpu("qwen2.5-3b, 2 layers", transformer,
+                       dataclasses.replace(CFG, n_layers=2), cut)
+
+
+def phase_griffin_card_vs_cpu(sess: ServeSession) -> float:
+    """The first super block (two recurrent blocks and one attention block)
+    and the two extra recurrent blocks: 5 layers at full width."""
+    st = sess.storage
+    cut = dict(embed=st["embed"], final_norm=st["final_norm"], extra_rec=st["extra_rec"],
+               super_blocks={part: {k: v[:1] for k, v in leaves.items()}
+                             for part, leaves in st["super_blocks"].items()})
+    cfg5 = dataclasses.replace(GCFG, n_layers=5)
+    require((cfg5.n_super, cfg5.n_extra_rec) == (1, GCFG.n_extra_rec), "griffin cut")
+    return card_vs_cpu("recurrentgemma-2b, 5 layers", griffin, cfg5, cut)
+
+
 # ---------------------------------------------------------------------------
-# 5. federated training at full width, 6. card against CPU
+# 7. federated training at full width, 8. card against CPU
 # ---------------------------------------------------------------------------
 
 
@@ -611,7 +735,8 @@ def phase_train_card_vs_cpu() -> tuple:
 def kernel_line(kernels: dict, counts_by_path: dict) -> dict:
     primary = dict(quantize_stats=list(EMBED), dequantize=list(MLP_SLICE), pack=list(EMBED),
                    unpack=list(EMBED), quantize=[COHORT, *TRAIN_LEAF],
-                   fused_aggregate=list(TRAIN_LEAF))
+                   fused_aggregate=list(TRAIN_LEAF), dequant_matmul=list(DECODE_W1))
+    keys = ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "matmul_alone_ms")
     entries = []
     for name, rows in kernels["results"].items():
         timed = [r for r in rows if "ms" in r]
@@ -621,13 +746,14 @@ def kernel_line(kernels: dict, counts_by_path: dict) -> dict:
             name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
             launches=sum(by_path.values()), launches_by_path=by_path, matched=True,
             max_abs_err=max(r["max_abs_err"] for r in rows), ms=main["ms"],
-            plain_ms=main["plain_ms"], bound_ms=main["bound_ms"], bound_by="bytes",
-            library_ms=None, shape=main["shape"],
-            at_shapes=[{k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms")}
-                       for r in timed]))
+            plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+            bound_by=main.get("bound_by", "bytes"), library_ms=None, shape=main["shape"],
+            at_shapes=[{k: r[k] for k in keys if k in r} for r in timed]))
     return dict(kernels=entries,
                 library_ms_note="no single PyTorch call encodes, decodes or packs a minifloat, "
-                                "or aggregates client codes",
+                                "or aggregates client codes, or multiplies by a minifloat "
+                                "matrix; dequant_matmul's matmul_alone_ms is torch.matmul on "
+                                "the pre-decoded f32 weight, not the same function",
                 stacked_mlp=kernels["stacked"])
 
 
@@ -639,10 +765,14 @@ def main() -> None:
     served = phase_serve()
     phase_card_vs_cpu(served["session"])
     del served["session"]
+    served_g = phase_serve_griffin()
+    phase_griffin_card_vs_cpu(served_g["session"])
+    del served_g["session"]
     torch.cuda.empty_cache()
     trained = phase_train()
     phase_train_card_vs_cpu()
     print(json.dumps(kernel_line(kernels, dict(serve=served["report"]["launch_counts"],
+                                               serve_griffin=served_g["report"]["launch_counts"],
                                                train=trained["counts"]))))
     print(json.dumps(dict(ok=True, device=dict(platform="gpu", kind=torch.cuda.get_device_name(0),
                                                count=torch.cuda.device_count()))))

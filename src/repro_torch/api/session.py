@@ -2,7 +2,10 @@
 
 ``ServeSession`` is the inference side: batched prefill/decode over the
 compressed weights via ``make_serve_fns``, with ``hot_swap`` ingesting a new
-round's payload between rounds.  The FL side (``FLSession``, ``FLClient``)
+round's payload between rounds.  The decode state is the family's own: a
+``KVCache`` for the dense transformer, a dict for griffin (``rec``, ``att``,
+optional ``extra_rec`` and the host-int ``length``); the session passes it
+through unchanged.  The FL side (``FLSession``, ``FLClient``)
 belongs to the training slice.
 """
 
@@ -62,6 +65,7 @@ class ServeSession:
         return info
 
     def init_cache(self, batch: int, max_len: int, dtype: torch.dtype = torch.float32):
+        """The family's empty decode state on the session's device."""
         return self.family.init_decode_state(self.cfg, batch, max_len, dtype=dtype,
                                              device=self.device)
 
@@ -73,7 +77,8 @@ class ServeSession:
 
     def generate(self, batch, cache, steps: int, *,
                  sample: Optional[Callable[[torch.Tensor], torch.Tensor]] = None):
-        """Greedy (or ``sample``-driven) generation; returns (cache, tokens [B, steps])."""
+        """Greedy (or ``sample``-driven) generation; returns (decode state,
+        tokens [B, steps])."""
         if steps < 1:
             raise ValueError(f"steps must be >= 1, got {steps}")
         pick = sample or (lambda logits: torch.argmax(logits, dim=-1))

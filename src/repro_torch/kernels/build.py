@@ -25,7 +25,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 HEADERS = ("minifloat.cuh", "reduce.cuh")
-SOURCES = ("quantize.cu", "bitpack.cu", "agg.cu")
+SOURCES = ("quantize.cu", "bitpack.cu", "agg.cu", "dequant_matmul.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -54,6 +54,10 @@ _SIGNATURES = {
     # partials, sums, m, entries, exp, mant, stream
     "omc_fused_aggregate": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _F, _P, _I, _P, _P, _LL, _I,
                                  _I, _I, _P]),
+    # codes, container_bytes, m, k, n
+    "omc_dequant_matmul_splits": (_LL, [_P, _I, _I, _I, _I]),
+    # a, codes, container_bytes, s, b, out, partial, rowpart, splits, m, k, n, exp, mant, stream
+    "omc_dequant_matmul": (_I, [_P, _P, _I, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _P]),
 }
 
 

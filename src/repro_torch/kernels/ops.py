@@ -3,7 +3,7 @@
 Counterpart of ``repro.kernels.ops``.  Dispatch is on the tensors' device:
 
   * CUDA tensors go to the hand-written Hopper kernels (``quantize``,
-    ``bitpack``, ``agg``), which launch or raise;
+    ``bitpack``, ``agg``, ``dequant_matmul``), which launch or raise;
   * CPU tensors go to the plain versions (``ref``).
 
 There is no fallback: no switch sends a CUDA tensor to a plain version.
@@ -24,6 +24,7 @@ from repro_torch.core.pvt import pvt_from_sums
 
 from . import agg as _agg
 from . import bitpack as _bp
+from . import dequant_matmul as _dm
 from . import quantize as _q
 from . import ref
 
@@ -68,6 +69,22 @@ def dequantize(codes: torch.Tensor, fmt: FloatFormat, s: Optional[torch.Tensor] 
     else:
         out = ref.ref_dequantize(codes, fmt, s, b)
         _LAUNCHES["dequantize.ref"] += 1
+    return out
+
+
+def dequant_matmul(a: torch.Tensor, codes: torch.Tensor, fmt: FloatFormat, s: torch.Tensor,
+                   b: torch.Tensor) -> torch.Tensor:
+    """``a[M, K] @ (s·decode(codes[K, N]) + b)`` in f32, the weight read as codes.
+
+    One (s, b) pair, as one-element f32 tensors; an unsupported input raises
+    ``ValueError`` on either device (``dequant_matmul.check_inputs``)."""
+    if _on_cuda("dequant_matmul", a, codes, s, b):
+        out = _dm.dequant_matmul(a, codes, fmt, s, b)
+        _LAUNCHES["dequant_matmul.cuda"] += 1
+    else:
+        _dm.check_inputs(a, codes, fmt, s, b)
+        out = ref.ref_dequant_matmul(a, codes, fmt, s, b)
+        _LAUNCHES["dequant_matmul.ref"] += 1
     return out
 
 

@@ -37,6 +37,13 @@ def ref_dequantize(codes: torch.Tensor, fmt: FloatFormat, s: Optional[torch.Tens
     return out
 
 
+def ref_dequant_matmul(a: torch.Tensor, codes: torch.Tensor, fmt: FloatFormat,
+                       s: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a[M, K] @ (s·decode(codes[K, N]) + b)`` in f32: the weight decoded
+    with its affine, then one matmul (the reference's ``ref_dequant_matmul``)."""
+    return a.to(torch.float32) @ pvt_apply(decode(codes, fmt), s, b)
+
+
 def ref_quantize_stats(x: torch.Tensor, fmt: FloatFormat,
                        batch_axes: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """(codes, sums) with ``sums[..., 4] = [Σv, Σṽ, Σvṽ, Σṽ²]`` per leading entry."""

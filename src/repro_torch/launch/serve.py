@@ -1,10 +1,13 @@
 """Serving CLI: batched generation over OMC-compressed weights.
 
 Port of ``repro.launch.serve``.  Weights stay compressed on the device (the
-paper's storage model); every layer is decoded on the fly, one
-``dequantize`` launch per compressed leaf.  The CLI runs on a
+paper's storage model): every block matrix streams its codes through the
+``dequant_matmul`` kernel, and the few leaves used otherwise (embedding
+rows, a tied head, griffin's ``conv_w``) are decoded on the fly by
+``dequantize``.  The CLI runs on a
 :class:`repro_torch.api.session.ServeSession`; it reports prefill and
-per-token decode latency and throughput.
+per-token decode latency and throughput.  ``--arch`` is qwen2.5-3b or
+recurrentgemma-2b; the batch is ``dict(tokens=...)`` for both.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \\
         --batch 4 --prompt-len 32 --gen 16 --fmt S1E3M7 --wire-roundtrip

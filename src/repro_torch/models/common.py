@@ -7,6 +7,11 @@ are stacked on a leading layer axis; where the reference scans over that
 axis under remat, the port runs a Python loop (``scan_blocks``), each layer
 under ``torch.utils.checkpoint`` when gradients are taken.
 
+A model multiplies by a weight matrix through :func:`linear`, which takes
+the weight as an f32 tensor or in code form (a ``CompressedVariable``, which
+``OMCMaterializer`` leaves for the matmul operands a model names) and then
+streams the codes through the ``dequant_matmul`` kernel.
+
 ``ParamSpec`` keeps the reference's logical axes as plain data: the port has
 no sharding, but the number of axes a spec describes is what tells stacked
 axes apart (``federated.state.n_stack_axes``).
@@ -21,7 +26,9 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core.store import is_compressed
 from repro_torch.core.tree import tree_items, tree_map
+from repro_torch.kernels import ops
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,9 +51,10 @@ RSPEC = ParamSpec(storage=("replicated",), gathered=("replicated",))  # any rank
 class Materializer:
     """Maps stored layer params -> compute weights.  This base is the
     identity (f32 params); ``federated.materialize.OMCMaterializer`` decodes
-    compressed leaves."""
+    compressed leaves, but for the top-level keys named in ``operands``
+    (the layer's matmul operands, which :func:`linear` takes in code form)."""
 
-    def __call__(self, subtree):
+    def __call__(self, subtree, operands=()):
         return subtree
 
     def leaf(self, x):
@@ -58,10 +66,10 @@ IDENTITY_MAT = Materializer()
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, *,
-               layers: Tuple[int, ...] = ()) -> torch.Tensor:
-    """N(0, 1/d_in) weights of shape ``layers + (d_in, d_out)``."""
+               layers: Tuple[int, ...] = (), scale: float = 1.0) -> torch.Tensor:
+    """N(0, scale²/d_in) weights of shape ``layers + (d_in, d_out)``."""
     w = torch.randn(layers + (d_in, d_out), generator=gen, device=gen.device)
-    return w.mul_(1.0 / d_in ** 0.5)
+    return w.mul_(scale / d_in ** 0.5)
 
 
 def embed_init(gen: torch.Generator, vocab: int, d: int) -> torch.Tensor:
@@ -73,9 +81,41 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.T
     return (x * torch.rsqrt(var + eps) * scale).to(x.dtype)
 
 
+def linear(x: torch.Tensor, w) -> torch.Tensor:
+    """``x [..., K] @ w [K, N]``.  A weight in code form (one 2-D
+    ``CompressedVariable`` entry) goes through ``ops.dequant_matmul`` with
+    ``x`` flattened to a contiguous ``[M, K]``; an f32 weight is ``x @ w``."""
+    if not is_compressed(w):
+        return x @ w
+    lead, a = x.shape[:-1], x.reshape(-1, x.shape[-1])
+    if not a.is_contiguous():
+        a = a.contiguous()
+    out = ops.dequant_matmul(a, w.codes, w.fmt, w.s, w.b)
+    return out.reshape(lead + (out.shape[-1],))
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default, the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
 def swiglu(x, w1, w3, w2):
     """LLaMA-style gated MLP: (silu(x@w1) * (x@w3)) @ w2."""
-    return (F.silu(x @ w1) * (x @ w3)) @ w2
+    return linear(F.silu(linear(x, w1)) * linear(x, w3), w2)
+
+
+def stack_entry(tree, i: int):
+    """Entry ``i`` of every stacked leaf of a flat dict (tensor or
+    ``CompressedVariable``, which indexes its codes and (s, b) together)."""
+    return {k: v[i] for k, v in tree.items()}
+
+
+def embed_lookup(table, tokens: torch.Tensor, mat: Materializer) -> torch.Tensor:
+    """Token rows of the embedding; a compressed table decodes only those rows
+    (one ``dequantize`` launch), bit for bit the rows of the decoded table."""
+    flat = tokens.reshape(-1)
+    rows = table.rows(flat) if is_compressed(table) else table[flat]
+    return mat.leaf(rows).reshape(tokens.shape + (-1,))
 
 
 def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:

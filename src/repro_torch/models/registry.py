@@ -2,8 +2,8 @@
 
 A family module exposes ``init`` and ``param_specs``; a servable one also
 ``prefill``, ``decode_step`` and ``init_decode_state``, a trainable one
-``loss``.  The dense transformer (serve) and the conformer (train) are
-ported; the other families are queued in ROADMAP.md (queue A10).
+``loss``.  The dense transformer and griffin (serve) and the conformer
+(train) are ported; the other families are queued in ROADMAP.md (queue A10).
 """
 
 from __future__ import annotations
@@ -11,11 +11,12 @@ from __future__ import annotations
 from types import ModuleType
 from typing import Dict
 
-from . import conformer, transformer
+from . import conformer, griffin, transformer
 
-_FAMILIES: Dict[str, ModuleType] = {"transformer": transformer, "conformer": conformer}
+_FAMILIES: Dict[str, ModuleType] = {"transformer": transformer, "griffin": griffin,
+                                     "conformer": conformer}
 
-SERVABLE = {"transformer"}
+SERVABLE = {"transformer", "griffin"}
 
 
 def get_family(name: str) -> ModuleType:

@@ -2,12 +2,14 @@
 
 Serving only: ``prefill`` and ``decode_step`` against a KV cache, over any
 parameter tree a :class:`~repro_torch.models.common.Materializer` turns into
-f32 weights (the identity for f32 params, ``OMCMaterializer`` for OMC
+compute weights (the identity for f32 params, ``OMCMaterializer`` for OMC
 storage).  Training (``loss``/``forward``) waits for the training slice.
 
-The stacked block parameters are consumed by a Python loop over layers: each
-layer's weights are materialized, used and dropped before the next layer's,
-which is the reference's per-layer remat of the decoded weights.
+The stacked block parameters are consumed by a Python loop over layers.  The
+seven block matrices of a layer (``OPERANDS``) go through ``common.linear``:
+over OMC storage each streams its codes through the ``dequant_matmul``
+kernel.  The tied head stays ``x @ dec(E).T``, a decode and a matmul, as the
+reference computes it.
 """
 
 from __future__ import annotations
@@ -17,8 +19,6 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.core.store import is_compressed
-
 from . import attention as attn
 from .common import (
     Materializer,
@@ -27,7 +27,10 @@ from .common import (
     apply_rope,
     dense_init,
     embed_init,
+    embed_lookup,
+    linear,
     rms_norm,
+    stack_entry,
     swiglu,
     wspec,
 )
@@ -134,24 +137,14 @@ def param_specs(cfg: TransformerConfig) -> Dict[str, Any]:
 # ---------------------------------------------------------------------------
 
 
-def _layer(blocks: Dict[str, Any], i: int) -> Dict[str, Any]:
-    """Entry i of every stacked block leaf (tensor or CompressedVariable)."""
-    return {k: v[i] for k, v in blocks.items()}
-
-
-def _embed_lookup(params, tokens: torch.Tensor, mat: Materializer) -> torch.Tensor:
-    """Token rows of the embedding; a compressed table decodes only those rows."""
-    table = params["embed"]
-    flat = tokens.reshape(-1)
-    rows = table.rows(flat) if is_compressed(table) else table[flat]
-    return mat.leaf(rows).reshape(tokens.shape + (-1,))
+OPERANDS = ("wq", "wk", "wv", "wo", "w1", "w3", "w2")  # the block's matmul operands
 
 
 def _qkv(w, x, cfg: TransformerConfig):
     b, s, _ = x.shape
-    q = x @ w["wq"]
-    k = x @ w["wk"]
-    v = x @ w["wv"]
+    q = linear(x, w["wq"])
+    k = linear(x, w["wk"])
+    v = linear(x, w["wv"])
     if "bq" in w:
         q, k, v = q + w["bq"], k + w["bk"], v + w["bv"]
     return (q.reshape(b, s, cfg.n_heads, cfg.hd), k.reshape(b, s, cfg.n_kv_heads, cfg.hd),
@@ -176,20 +169,20 @@ def prefill(cfg: TransformerConfig, params, batch, mat: Materializer,
     logits of the last position [B, 1, V]."""
     tokens = batch["tokens"]
     b, s = tokens.shape
-    x = _embed_lookup(params, tokens, mat)
+    x = embed_lookup(params["embed"], tokens, mat)
     positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
     buf = cache.buf_len
     new = attn.init_cache(cfg.n_layers, b, buf, cfg.n_kv_heads, cfg.hd, cache.k.dtype,
                           x.device)
     t = min(buf, s)  # cache tail: the last `buf` positions (ring slot = pos % buf)
     for i in range(cfg.n_layers):
-        w = mat(_layer(params["blocks"], i))
+        w = mat(stack_entry(params["blocks"], i), operands=OPERANDS)
         h = rms_norm(x, w["attn_norm"], cfg.norm_eps)
         q, k, v = _qkv(w, h, cfg)
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
         o = attn.attend(q, k, v, positions, positions, causal=True, window=cfg.window)
-        x = x + o.reshape(b, s, cfg.q_dim) @ w["wo"]
+        x = x + linear(o.reshape(b, s, cfg.q_dim), w["wo"])
         h = rms_norm(x, w["mlp_norm"], cfg.norm_eps)
         x = x + swiglu(h, w["w1"], w["w3"], w["w2"])
         new.k[i, :, :t] = k[:, -t:].to(new.k.dtype)
@@ -213,12 +206,12 @@ def decode_step(cfg: TransformerConfig, params, cache: attn.KVCache, tokens: tor
     returns a fresh cache); the returned cache shares them, one token longer.
     """
     b = tokens.shape[0]
-    x = _embed_lookup(params, tokens, mat)
+    x = embed_lookup(params["embed"], tokens, mat)
     position = cache.length
     positions = torch.full((b, 1), position, dtype=torch.int32, device=x.device)
     ring = cfg.window is not None
     for i in range(cfg.n_layers):
-        w = mat(_layer(params["blocks"], i))
+        w = mat(stack_entry(params["blocks"], i), operands=OPERANDS)
         h = rms_norm(x, w["attn_norm"], cfg.norm_eps)
         q, k, v = _qkv(w, h, cfg)
         q = apply_rope(q, positions, cfg.rope_theta)
@@ -226,7 +219,7 @@ def decode_step(cfg: TransformerConfig, params, cache: attn.KVCache, tokens: tor
         kc, vc, pc = attn.cache_insert(cache.k[i], cache.v[i], cache.pos[i], k, v, position,
                                        ring=ring)
         o = attn.decode_attend(q, kc, vc, pc, position, window=cfg.window)
-        x = x + o.reshape(b, 1, cfg.q_dim) @ w["wo"]
+        x = x + linear(o.reshape(b, 1, cfg.q_dim), w["wo"])
         h = rms_norm(x, w["mlp_norm"], cfg.norm_eps)
         x = x + swiglu(h, w["w1"], w["w3"], w["w2"])
         del w

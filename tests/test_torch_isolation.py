@@ -68,6 +68,13 @@ def test_serve_without_a_card_raises_instead_of_using_the_cpu(monkeypatch):
         serve.run(serve.parse_args(["--smoke"]))
 
 
+def test_griffin_serve_without_a_card_raises_instead_of_using_the_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert get_family(get_arch("recurrentgemma-2b").FAMILY).__name__ == "repro_torch.models.griffin"
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        serve.run(serve.parse_args(["--smoke", "--arch", "recurrentgemma-2b"]))
+
+
 def test_unported_archs_and_families_name_the_roadmap():
     assert get_arch("qwen2.5-3b").ID == "qwen2.5-3b"
     with pytest.raises(KeyError, match="ROADMAP"):

@@ -8,7 +8,9 @@ with ``repro_torch.interop`` — through their ``make_serve_fns`` and
 Logits agree within rtol=atol=1e-4: the decoded weights are the same up to
 the affine's fused-vs-unfused rounding, and the f32 matmuls and softmax sums
 are taken in another order (the measured maximum difference here is about
-1e-6).  Greedy tokens must be equal.
+1e-6).  Greedy tokens must be equal.  The port's block matrices go through
+``dequant_matmul`` (its plain version on the CPU); the reference's serve
+path decodes them and multiplies, which is the function the port is held to.
 """
 
 import os
@@ -34,6 +36,7 @@ from repro_torch.api.session import ServeSession
 from repro_torch.configs import qwen2_5_3b
 from repro_torch.core.store import trees_bit_equal
 from repro_torch.federated.round import make_serve_fns
+from repro_torch.kernels import ops
 from repro_torch.models import transformer as tr
 
 torch.set_num_threads(1)
@@ -75,6 +78,23 @@ def test_prefill_and_decode_logits_match_reference(trees):
         np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), rtol=1e-4, atol=1e-4)
     assert cache.length == S + 3 == int(jcache.length)
     np.testing.assert_array_equal(cache.pos.numpy(), np.asarray(jcache.pos))
+
+
+def test_forward_pass_streams_every_block_matrix_through_dequant_matmul(trees):
+    """Over OMC storage one forward pass sends each layer's seven block
+    matrices through ``dequant_matmul`` and decodes only the embedding rows
+    and the tied head (``dequantize``); on the CPU both are plain versions."""
+    _, storage = trees
+    cfg = qwen2_5_3b.smoke_config()
+    prefill, decode = make_serve_fns(tr, cfg)
+    cache = tr.init_decode_state(cfg, B, MAX_LEN, dtype=torch.float32, device="cpu")
+    want = {"dequant_matmul.ref": 7 * cfg.n_layers, "dequantize.ref": 2}
+    ops.reset_launch_counts()
+    cache, logits = prefill(storage, dict(tokens=torch.from_numpy(_tokens()).long()), cache)
+    assert ops.launch_counts() == want
+    ops.reset_launch_counts()
+    decode(storage, cache, torch.argmax(logits[:, -1], dim=-1)[:, None])
+    assert ops.launch_counts() == want
 
 
 def test_generate_greedy_tokens_match_reference(trees):
