@@ -6,8 +6,10 @@
 Phases, in order; any failure exits non-zero and no phase's failure is caught:
 
   1. Environment: the card's name and power limit (nvidia-smi), torch and
-     CUDA versions, and the build of the kernels from ``src/repro_torch/
-     kernels/csrc`` (one nvcc per source, in parallel, sm_90a), with its time.
+     CUDA versions, the CPU's instruction set as ATen dispatches it and its
+     threads (the plain versions' side), and the build of the kernels from
+     ``src/repro_torch/kernels/csrc`` (one nvcc per source, in parallel,
+     sm_90a), with its time.
   2. Each of the seven kernels against its plain PyTorch version, on the card:
      at the serve path's shapes (qwen2.5-3b's MLP slice [2048, 11008] and
      embedding [151936, 2048] in S1E3M7), at the training path's shapes
@@ -18,12 +20,23 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
      and decodes bit-exact, PVT sums within rtol=1e-4.  ``dequant_matmul``
      at the serve paths' products in S1E3M7 (decode [4, 2048]x[2048, 11008],
      [4, 11008]x[11008, 2048], [4, 2048]x[2048, 256], [4, 2560]x[2560, 7680];
-     prefill [128, 2048]x[2048, 11008]), odd tails [3, 37]x[37, 53] in u8 and
-     u32, and per-entry (s, b) of a doubly stacked leaf, all with b != 0:
-     elementwise within 2e-5 * (|A| @ |s*dec(W) + b|).  Kernel and plain
-     version are timed with CUDA events (3 warm-ups, median of 20, L2
-     flushed before each launch); beside ``dequant_matmul``, ``torch.matmul``
-     on the pre-decoded f32 weight ("matmul alone", not the same function).
+     prefill [128, 2048]x[2048, 11008], and the prefill products whose tile
+     splits K over a cluster: qwen's [128, 2048]x[2048, 2048], [128, 2048]x
+     [2048, 256] and [128, 11008]x[11008, 2048], griffin's [128, 2560]x
+     [2560, 256] and [128, 7680]x[7680, 2560]), odd tails [3, 37]x[37, 53]
+     in u8 and u32, and per-entry (s, b) of a doubly stacked leaf, all with
+     b != 0: elementwise within 2e-5 * (|A| @ |s*dec(W) + b|), the same bits
+     from two launches with a launch on an all-NaN A between them, the
+     kernel's variant (decode, TF32 passes) the one ``kernel_variant``
+     states, the error over the bound printed for each; and every
+     finite code of S1E2M3, S1E3M7, S1E4M3, S1E5M10 and S1E4M14 decoded
+     inside the kernel, on both of its paths, exactly as the plain decode.
+     Kernel and plain version are timed with CUDA events (3 warm-ups,
+     median of 20, L2 flushed before each launch); beside
+     ``dequant_matmul``, ``torch.matmul`` on the pre-decoded f32 weight
+     ("matmul alone", not the same function), and its bound both ways:
+     the tile path's TF32 passes over the tensor cores' rate, and f32
+     operations over the rate outside them.
   3. Serve at full width: ``repro_torch.launch.serve.run`` on qwen2.5-3b,
      S1E3M7, --wire-roundtrip, batch 4, prompt 32, 16 new tokens — init on
      the card, compress (quantize_stats), encode (pack), hot-swap (unpack,
@@ -34,15 +47,17 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
      ``dequant_matmul`` and 2 ``dequantize`` launches per forward pass, every
      serve kernel launched, no plain version run.
   4. Card against CPU at full width: the served storage tree cut to 2 layers,
-     prefill and 2 decode steps on the card (kernels) and on the CPU (plain
-     versions); the largest logit difference must be <= 1e-3.
+     prefill and 2 decode steps on the card (kernels), twice (the same bits
+     both times), and on the CPU (plain versions); the largest logit
+     difference must be <= 1e-3.  The sha256 of each step's logits, on the
+     card and on the CPU, is printed, so that runs can be compared.
   5. Serve recurrentgemma-2b (griffin) at full width the same way (26 layers,
      d 2560, vocab 256,000; batch 4, prompt 32, 16 new tokens, with the wire
      roundtrip): 200 ``dequant_matmul`` and 20 ``dequantize`` launches per
      forward pass, no plain version run, payload ratio <= 0.35.
   6. Card against CPU for griffin: its storage cut to 5 layers (the first
      super block and the two extra recurrent blocks) at full width, prefill
-     and 2 decode steps; the largest logit difference must be <= 1e-3.
+     and 2 decode steps, as in phase 4.
   7. Federated training at full width through the engine
      (``engine.run_training_vectorized``, ``engine.run_round_vectorized``):
      conformer_s (17 layers, d 512), random weights from a seed on the card,
@@ -68,6 +83,7 @@ switched off for matmuls and cuDNN.  Exits non-zero without a CUDA device.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import math
 import statistics
@@ -102,6 +118,7 @@ from repro_torch.models import conformer, griffin, transformer  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 F32_FLOP_PER_S = 67e12  # H100 SXM f32 rate outside the tensor cores (NVIDIA data sheet)
+TF32_FLOP_PER_S = 494.7e12  # H100 SXM dense TF32 tensor-core rate (NVIDIA data sheet)
 FMT = FloatFormat.parse("S1E3M7")
 CFG = qwen2_5_3b.config()
 MLP_SLICE = (CFG.d_model, CFG.d_ff)  # one layer's w1 / w3
@@ -109,6 +126,16 @@ EMBED = (CFG.vocab, CFG.d_model)
 STACKED_MLP = (CFG.n_layers, CFG.d_model, CFG.d_ff)  # a stacked w1 leaf
 GCFG = recurrentgemma_2b.config()
 DECODE_W1 = (4, CFG.d_model, CFG.d_ff)  # (M, K, N) of a decode step's w1 product
+PREFILL = 128  # rows of A in a 4 x 32 prefill
+# (M, K, N) of the serve paths' products: decode w1, w2, wk, prefill w1 and
+# griffin's decode w1; then the prefill products whose tile splits K over a
+# cluster of blocks: qwen's wq/wo, wk/wv and w2, griffin's wk/wv and w2
+DM_SERVE = [DECODE_W1, (4, CFG.d_ff, CFG.d_model), (4, CFG.d_model, CFG.kv_dim),
+            (PREFILL, CFG.d_model, CFG.d_ff), (4, GCFG.d_model, GCFG.d_ff)]
+DM_PREFILL_SPLIT_K = [(PREFILL, CFG.d_model, CFG.q_dim), (PREFILL, CFG.d_model, CFG.kv_dim),
+                      (PREFILL, CFG.d_ff, CFG.d_model),
+                      (PREFILL, GCFG.d_model, GCFG.n_kv_heads * GCFG.hd),
+                      (PREFILL, GCFG.d_ff, GCFG.d_model)]
 TRAIN_CFG = conformer_s.config()
 TRAIN_LEAF = (TRAIN_CFG.n_layers, TRAIN_CFG.d_model, TRAIN_CFG.d_ff)  # stacked w1 / w2ᵀ
 COHORT = 8
@@ -178,6 +205,8 @@ def phase_environment() -> dict:
     print(smi)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"device {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
+    print(f"CPU (the plain versions): {torch.backends.cpu.get_cpu_capability()} as ATen "
+          f"dispatches it, {torch.get_num_threads()} threads")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print("TF32 off: torch.backends.cuda.matmul.allow_tf32 = False, "
@@ -373,7 +402,14 @@ def check_dequant_matmul(mkn, fmt, timer=None, seed=0, entry=()):
     """``dequant_matmul`` against its plain version, elementwise within
     ``2e-5 * (|A| @ |W_eff|)``: random weights compressed on the card
     (``entry`` indexes a stacked leaf of that many leading entries, each
-    with its own (s, b)), the bias moved off zero."""
+    with its own (s, b)), the bias moved off zero; a second launch, after
+    one on an all-NaN A that leaves NaN in the kernel's shared memory, must
+    give the same bits.  The kernel's variant (its decode and the tile
+    path's passes) must be the one ``kernel_variant`` states.  Timed:
+    ``bound_ms`` is the larger of the bytes over the memory rate and, on the
+    tile path, the TF32 passes' operations over the tensor cores' TF32
+    rate; ``f32_simt_bound_ms`` beside it divides the f32 operations by the
+    rate outside the tensor cores (the SIMT kernel's bound)."""
     m, k, n = mkn
     g = torch.Generator(device="cuda").manual_seed(seed)
     w = torch.randn(tuple(entry) + (k, n), generator=g, device="cuda") * 0.02
@@ -383,25 +419,66 @@ def check_dequant_matmul(mkn, fmt, timer=None, seed=0, entry=()):
         v = v[i - 1]  # the last entry of each stacked axis
     codes, s, b = v.codes, v.s, v.b + 0.003
     a = torch.randn((m, k), generator=g, device="cuda")
+    plan = dm.plan(a, codes, fmt)
+    require((plan["codec"], plan["passes"]) == dm.kernel_variant(fmt),
+            f"dequant_matmul {fmt.name}: the kernel's variant {plan} is not kernel_variant's")
     got = dm.dequant_matmul(a, codes, fmt, s, b)
+    dm.dequant_matmul(torch.full_like(a, math.nan), codes, fmt, s, b)
+    again = dm.dequant_matmul(a, codes, fmt, s, b)
     torch.cuda.synchronize()
+    require(bit_equal(got, again), f"dequant_matmul {fmt.name} {mkn}: two launches differ")
     want = ref.ref_dequant_matmul(a, codes, fmt, s, b)
     w_eff = ref.ref_dequantize(codes, fmt, s, b)
     bound = 2e-5 * (a.abs() @ w_eff.abs())
     err = (got - want).abs()
     require(bool((err <= bound).all()), f"dequant_matmul differs {fmt.name} {mkn} entry {entry}: "
             f"max err {err.max().item()} over a bound of {bound.min().item()}")
-    out = dict(shape=[m, k, n], fmt=fmt.name, max_abs_err=err.max().item(),
-               max_err_over_bound=(err / bound).max().item())
+    path = plan["path"]
+    out = dict(shape=[m, k, n], fmt=fmt.name, path=path, grid=list(plan["grid"]),
+               max_abs_err=err.max().item(), max_err_over_bound=(err / bound).max().item(),
+               same_bits=True)
     if timer:
-        ops_ms = dm.dequant_matmul_flops(m, k, n) / F32_FLOP_PER_S * 1e3
         bytes_ms = bound_ms(dm.dequant_matmul_moved_bytes(m, k, n, fmt))
+        passes = plan["passes"]
+        ops_ms = passes * dm.dequant_matmul_flops(m, k, n) / TF32_FLOP_PER_S * 1e3
+        if path == "stream":  # f32 FMAs outside the tensor cores, bound by the bytes
+            ops_ms = dm.dequant_matmul_flops(m, k, n) / F32_FLOP_PER_S * 1e3
         out.update(ms=timer(lambda: dm.dequant_matmul(a, codes, fmt, s, b)),
                    plain_ms=timer(lambda: ref.ref_dequant_matmul(a, codes, fmt, s, b)),
                    bound_ms=max(ops_ms, bytes_ms),
-                   bound_by="operations" if ops_ms > bytes_ms else "bytes",
+                   bound_by="bytes" if bytes_ms >= ops_ms else (
+                       "operations" if path == "stream" else f"operations (TF32 x {passes})"),
+                   f32_simt_bound_ms=max(bytes_ms, dm.dequant_matmul_flops(m, k, n)
+                                         / F32_FLOP_PER_S * 1e3),
                    matmul_alone_ms=timer(lambda: torch.matmul(a, w_eff)))
     return out
+
+
+def check_dequant_matmul_decode(name: str, path: str) -> dict:
+    """Every finite code of ``name`` decoded inside the kernel on ``path``:
+    the codes laid out as 8 (stream) or 128 (tile) rows of whole 16-code
+    vectors, A the identity, s = 1, b = 0, so the product is the decoded
+    codes, which must equal the plain decode exactly (as values: -0.0 comes
+    out as +0.0)."""
+    fmt = FloatFormat.parse(name)
+    rows = 8 if path == "stream" else 128
+    c = torch.arange(1 << fmt.bits, device="cuda")
+    top = (1 << fmt.exp_bits) - 1
+    c = c[((c >> fmt.mant_bits) & top) != top]
+    cols = -(-c.numel() // (rows * 16)) * 16
+    c = torch.cat([c, torch.zeros(rows * cols - c.numel(), dtype=c.dtype, device="cuda")])
+    codes = narrow(c.reshape(rows, cols), fmt.container_dtype)
+    a = torch.eye(rows, device="cuda")
+    one, zero = torch.ones((), device="cuda"), torch.zeros((), device="cuda")
+    require(dm.plan(a, codes, fmt)["path"] == path, f"decode check {name}: not on the {path} path")
+    got = dm.dequant_matmul(a, codes, fmt, one, zero)
+    again = dm.dequant_matmul(a, codes, fmt, one, zero)
+    torch.cuda.synchronize()
+    require(torch.equal(got, ref.ref_dequantize(codes, fmt)),
+            f"dequant_matmul decodes a code of {name} wrongly on the {path} path")
+    require(bit_equal(got, again), f"decode check {name} {path}: two launches differ")
+    return dict(shape=[rows, rows, cols], fmt=name, path=path, codes=int(c.numel()),
+                max_abs_err=0.0, max_err_over_bound=0.0, same_bits=True)
 
 
 def phase_kernels() -> dict:
@@ -461,21 +538,30 @@ def phase_kernels() -> dict:
         torch.cuda.empty_cache()
     # dequant_matmul: odd tails in u8 and u32, per-entry (s, b) of a doubly
     # stacked leaf, then the serve paths' products in S1E3M7, timed
+    for name in ("S1E2M3", "S1E3M7", "S1E4M3", "S1E5M10", "S1E4M14"):
+        for path in ("stream", "tile"):
+            results["dequant_matmul"].append(check_dequant_matmul_decode(name, path))
     for fmt in (FloatFormat.parse("S1E2M3"), FloatFormat.parse("S1E4M14"), FMT):
         results["dequant_matmul"].append(check_dequant_matmul((3, 37, 53), fmt, seed=1))
     results["dequant_matmul"].append(check_dequant_matmul((4, 256, 384), FMT, seed=2,
                                                           entry=(2, 2)))
-    for mkn in (DECODE_W1, (4, CFG.d_ff, CFG.d_model), (4, CFG.d_model, CFG.kv_dim),
-                (128, CFG.d_model, CFG.d_ff), (4, GCFG.d_model, GCFG.d_ff)):
-        results["dequant_matmul"].append(check_dequant_matmul(mkn, FMT, timer, seed=sum(mkn)))
+    for mkn in DM_SERVE + DM_PREFILL_SPLIT_K:
+        r = check_dequant_matmul(mkn, FMT, timer, seed=sum(mkn))
+        require(mkn not in DM_PREFILL_SPLIT_K or r["grid"][1] > 1,
+                f"dequant_matmul {mkn}: K is not split over a cluster ({r['grid']})")
+        results["dequant_matmul"].append(r)
         torch.cuda.empty_cache()
     for name, rows in results.items():
         for r in rows:
             if "ms" in r:
                 print(f"  {name:15s} {str(r['shape']):20s} kernel {r['ms']:.4f} ms  "
                       f"plain {r['plain_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms"
-                      + (f"  matmul alone {r['matmul_alone_ms']:.4f} ms"
+                      + (f" ({r['bound_by']}; f32 SIMT bound {r['f32_simt_bound_ms']:.4f} ms)"
+                         f"  matmul alone {r['matmul_alone_ms']:.4f} ms"
                          if "matmul_alone_ms" in r else ""))
+    for r in results["dequant_matmul"]:
+        print(f"  dequant_matmul {r['fmt']} {r['shape']} {r['path']}: max err over bound "
+              f"{r['max_err_over_bound']:.4g}, same bits twice {r['same_bits']}")
     print(f"  stacked w1 {stacked}")
     print(f"kernels match their plain versions: "
           f"{ {k: len(v) for k, v in results.items()} } cases")
@@ -557,18 +643,35 @@ def card_vs_cpu(run: str, family, cfg, cut) -> float:
     cpu = ServeSession(family, cfg, tree_map(lambda x: x.to("cpu"), cut))
     g = torch.Generator(device="cuda").manual_seed(2)
     toks = torch.randint(0, cfg.vocab, (4, 32), generator=g, device="cuda")
-    cg, lg = gpu.prefill(dict(tokens=toks), gpu.init_cache(4, 64))
-    cc, lc = cpu.prefill(dict(tokens=toks.cpu()), cpu.init_cache(4, 64))
-    diffs = [(lg.cpu() - lc).abs().max().item()]
-    for _ in range(2):
-        tok = torch.argmax(lg[:, -1], dim=-1)[:, None]
-        cg, lg = gpu.decode_step(cg, tok)
-        cc, lc = cpu.decode_step(cc, tok.cpu())
-        diffs.append((lg.cpu() - lc).abs().max().item())
+
+    def steps(sess, tokens, pick=None):
+        """The logits of prefill and 2 decode steps, on the host; the decode
+        steps take ``pick``'s tokens (else their own argmax)."""
+        c, lg = sess.prefill(dict(tokens=tokens), sess.init_cache(4, 64))
+        out = [lg.cpu()]
+        for i in range(2):
+            tok = (pick[i] if pick else torch.argmax(out[-1][:, -1], dim=-1))[:, None]
+            c, lg = sess.decode_step(c, tok.to(tokens.device))
+            out.append(lg.cpu())
+        return out
+
+    card = steps(gpu, toks)
+    again = steps(gpu, toks)  # the whole path twice in one process: the same bits
+    picks = [torch.argmax(lg[:, -1], dim=-1) for lg in card[:2]]
+    host = steps(cpu, toks.cpu(), picks)
+    diffs = [(lg - lc).abs().max().item() for lg, lc in zip(card, host)]
     worst = max(diffs)
-    print(f"  {run}: card vs CPU, max |logit diff| per step {diffs}")
+    print(f"  {run}: card vs CPU, max |logit diff| per step {diffs}; logits' sha256 per "
+          f"step: card {[digest(x) for x in card]}, CPU {[digest(x) for x in host]}")
+    require(all(bit_equal(x, y) for x, y in zip(card, again)),
+            f"{run}: the card's logits differ between two runs of the same requests")
     require(worst <= 1e-3, f"{run}: card and CPU logits differ by {worst}")
     return worst
+
+
+def digest(x: torch.Tensor) -> str:
+    """The first 12 hex digits of the sha256 of a tensor's bytes."""
+    return hashlib.sha256(x.contiguous().numpy().tobytes()).hexdigest()[:12]
 
 
 def phase_card_vs_cpu(sess: ServeSession) -> float:
@@ -736,7 +839,8 @@ def kernel_line(kernels: dict, counts_by_path: dict) -> dict:
     primary = dict(quantize_stats=list(EMBED), dequantize=list(MLP_SLICE), pack=list(EMBED),
                    unpack=list(EMBED), quantize=[COHORT, *TRAIN_LEAF],
                    fused_aggregate=list(TRAIN_LEAF), dequant_matmul=list(DECODE_W1))
-    keys = ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "matmul_alone_ms")
+    keys = ("shape", "path", "ms", "plain_ms", "bound_ms", "bound_by", "f32_simt_bound_ms",
+            "matmul_alone_ms", "max_err_over_bound")
     entries = []
     for name, rows in kernels["results"].items():
         timed = [r for r in rows if "ms" in r]
@@ -748,7 +852,9 @@ def kernel_line(kernels: dict, counts_by_path: dict) -> dict:
             max_abs_err=max(r["max_abs_err"] for r in rows), ms=main["ms"],
             plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
             bound_by=main.get("bound_by", "bytes"), library_ms=None, shape=main["shape"],
-            at_shapes=[{k: r[k] for k in keys if k in r} for r in timed]))
+            at_shapes=[{k: r[k] for k in keys if k in r} for r in timed],
+            **({"max_err_over_bound": max(r["max_err_over_bound"] for r in rows)}
+               if name == "dequant_matmul" else {})))
     return dict(kernels=entries,
                 library_ms_note="no single PyTorch call encodes, decodes or packs a minifloat, "
                                 "or aggregates client codes, or multiplies by a minifloat "

@@ -54,10 +54,10 @@ _SIGNATURES = {
     # partials, sums, m, entries, exp, mant, stream
     "omc_fused_aggregate": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _F, _P, _I, _P, _P, _LL, _I,
                                  _I, _I, _P]),
-    # codes, container_bytes, m, k, n
-    "omc_dequant_matmul_splits": (_LL, [_P, _I, _I, _I, _I]),
-    # a, codes, container_bytes, s, b, out, partial, rowpart, splits, m, k, n, exp, mant, stream
-    "omc_dequant_matmul": (_I, [_P, _P, _I, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _P]),
+    # a, codes, container_bytes, exp, mant, m, k, n, plan[5]
+    "omc_dequant_matmul_plan": (_I, [_P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    # a, codes, container_bytes, s, b, out, m, k, n, exp, mant, stream
+    "omc_dequant_matmul": (_I, [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
 }
 
 

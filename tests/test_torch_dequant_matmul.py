@@ -13,8 +13,10 @@ The tests marked ``cuda`` hold the CUDA kernel against the plain version on
 the card, elementwise within ``2e-5 · (|A| @ |s·dec(W) + b|)``: the kernel
 sums in another order and adds the bias as the rank-1 term.  Their shapes
 reach both of its paths: the weight stream (M <= 8 with N a whole number of
-16-byte code vectors; split K, a chunk of 512 rows at most) and the tiled
-kernel (everything else).  Without a card
+code vectors; K split over warps and a cluster) and the tile on the tensor
+cores (everything else; 2xTF32, or 3xTF32 for S1E4M14).  Two more hold
+every finite code of five formats, decoded inside each path, to the plain
+decode bit for bit, and two launches to the same bits.  Without a card
 they skip; they need no JAX (``pytest tests/test_torch_dequant_matmul.py -m
 cuda`` on a machine with the card).
 """
@@ -25,13 +27,14 @@ import torch
 
 try:  # the reference; a machine with the card has no JAX, and runs `-m cuda` only
     import jax.numpy as jnp
+    from repro.core import formats as jformats
     from repro.core.formats import FloatFormat as JFormat
     from repro.kernels import dequant_matmul as jdm
     from repro.kernels import ref as jref
 except ImportError:
     jnp = None
 
-from repro_torch.core.formats import FloatFormat
+from repro_torch.core.formats import FloatFormat, decode, narrow
 from repro_torch.core.store import compress_variable, is_compressed
 from repro_torch.federated.materialize import OMCMaterializer
 from repro_torch.kernels import dequant_matmul as dm
@@ -182,6 +185,93 @@ def test_moved_bytes_and_flops():
     assert dm.dequant_matmul_flops(4, 2048, 11008) == 2 * 4 * 2048 * 11008
 
 
+def _finite_codes(fmt):
+    """Every code of ``fmt`` whose exponent field is not the top (inf/NaN) one."""
+    c = np.arange(1 << fmt.bits, dtype=np.int64)
+    top = (1 << fmt.exp_bits) - 1
+    return c[((c >> fmt.mant_bits) & top) != top]
+
+
+@pytest.mark.parametrize("name,exact", [("S1E2M3", True), ("S1E3M7", True), ("S1E4M3", True),
+                                        ("S1E5M10", True), ("S1E4M14", False)])
+def test_decoded_values_exact_in_tf32(name, exact):
+    """The tile path's two passes rest on this: every finite decoded value
+    of a format with <= 10 mantissa bits has the low 13 bits of its f32
+    pattern zero (exact in TF32), and equals the reference's decode; a
+    format with more mantissa bits is not exact, and takes three passes."""
+    fmt = FloatFormat.parse(name)
+    codes = narrow(torch.from_numpy(_finite_codes(fmt)), fmt.container_dtype)
+    got = decode(codes, fmt)
+    want = np.asarray(jformats.decode(jnp.asarray(codes.numpy()), JFormat.parse(name)))
+    np.testing.assert_array_equal(got.numpy().view(np.int32), want.view(np.int32))
+    low13 = got.numpy().view(np.int32) & 0x1FFF
+    assert bool((low13 == 0).all()) == exact == dm.tf32_exact(fmt)
+
+
+@pytest.mark.parametrize("name,variant", [
+    ("S1E3M7", (dm.CODEC_S1E3M7, 2)), ("S1E5M10", (dm.CODEC_RUNTIME, 2)),
+    ("S1E2M3", (dm.CODEC_RUNTIME, 2)), ("S1E4M3", (dm.CODEC_RUNTIME, 2)),
+    ("S1E2M13", (dm.CODEC_RUNTIME, 3)), ("S1E4M14", (dm.CODEC_RUNTIME, 3)),
+    ("S1E8M23", (dm.CODEC_RUNTIME, 3)),
+])
+def test_kernel_variant_picks_codec_and_passes(name, variant):
+    """The host's choice: S1E3M7 (u16) is the compile-time format, every
+    other one is read at run time; two TF32 passes where the decoded weight
+    is exact in TF32, three where it is not."""
+    fmt = FloatFormat.parse(name)
+    assert dm.kernel_variant(fmt) == variant
+    if fmt.bits <= 16:  # small enough to check the passes against every code
+        vals = decode(narrow(torch.from_numpy(_finite_codes(fmt)), fmt.container_dtype), fmt)
+        assert bool(((vals.view(torch.int32) & 0x1FFF) == 0).all()) == (variant[1] == 2)
+
+
+def _tf32_rn(x: np.ndarray) -> np.ndarray:
+    """cvt.rna.tf32.f32: round f32 to 10 mantissa bits, ties away from zero."""
+    b = x.astype(np.float32).view(np.uint32).astype(np.uint64)
+    return ((b + 0x1000) & 0xFFFFE000).astype(np.uint32).view(np.float32)
+
+
+def _trunc_f32(x: np.ndarray) -> np.ndarray:
+    """float64 -> f32, rounded toward zero (the tensor cores' accumulation)."""
+    f = x.astype(np.float32)
+    over = np.abs(f.astype(np.float64)) > np.abs(x)
+    return np.where(over, np.nextafter(f, np.float32(0)), f)
+
+
+def _emulate_tile(a, dec, s, b, split_a):
+    """The tile path's arithmetic in numpy: A split into TF32 halves (or
+    only rounded), products exact, each k = 8 step of each pass summed and
+    added to an f32 accumulator rounded toward zero; then s·acc + b·rowsum."""
+    a_hi = _tf32_rn(a)
+    a_lo = _tf32_rn(a - a_hi)
+    passes = (a_lo, a_hi) if split_a else (a_hi,)
+    acc = np.zeros((a.shape[0], dec.shape[1]), np.float32)
+    for k0 in range(0, a.shape[1], 8):
+        for ap in passes:
+            step = ap[:, k0:k0 + 8].astype(np.float64) @ dec[k0:k0 + 8].astype(np.float64)
+            acc = _trunc_f32(acc.astype(np.float64) + step)
+    rowsum = a.sum(1, keepdims=True, dtype=np.float32)
+    return (np.float32(s) * acc + np.float32(b) * rowsum).astype(np.float32)
+
+
+def test_two_tf32_passes_stay_within_the_f32_bound():
+    """At K = 2048 (decode w1's depth) the 2xTF32 product of the tile path,
+    emulated with the tensor cores' rounding, stays well inside
+    2e-5·(|A| @ |W_eff|) of the f32 plain version; one TF32 pass does not."""
+    fmt = FloatFormat.parse("S1E3M7")
+    a, w = _case(8, 2048, 64, seed=11, w_scale=0.02)
+    v = compress_variable(torch.from_numpy(w), fmt)
+    s, b = v.s, v.b + 0.003
+    want = ref.ref_dequant_matmul(torch.from_numpy(a), v.codes, fmt, s, b).numpy()
+    dec = decode(v.codes, fmt).numpy()
+    w_eff = ref.ref_dequantize(v.codes, fmt, s, b).numpy()
+    bound = 2e-5 * (np.abs(a) @ np.abs(w_eff))
+    two = np.abs(_emulate_tile(a, dec, s.item(), b.item(), True) - want) / bound
+    one = np.abs(_emulate_tile(a, dec, s.item(), b.item(), False) - want) / bound
+    assert two.max() <= 0.25, two.max()
+    assert one.max() > 1.0, one.max()
+
+
 # ---------------------------------------------------------------------------
 # On the card: the CUDA kernel against its plain version
 # ---------------------------------------------------------------------------
@@ -232,3 +322,68 @@ def test_cuda_dequant_matmul_per_entry_scalars(cuda):
             got = dm.dequant_matmul(a, e.codes, fmt, e.s, e.b)
             want = ref.ref_dequant_matmul(a, e.codes, fmt, e.s, e.b)
             _assert_within_rank1_tolerance(got, want, a, e.codes, fmt, e.s, e.b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["S1E3M7", "S1E5M10", "S1E2M3", "S1E4M3", "S1E2M13",
+                                  "S1E4M14", "S1E8M23"])
+def test_cuda_kernel_takes_the_stated_variant(cuda, name):
+    """The C entry picks its decode and the tile path's passes from the
+    format; they are the ones ``kernel_variant`` states."""
+    fmt = FloatFormat.parse(name)
+    a = torch.zeros((128, 64), device=cuda)
+    codes = torch.zeros((64, 64), dtype=fmt.container_dtype, device=cuda)
+    got = dm.plan(a, codes, fmt)
+    assert got["path"] == "tile"
+    assert (got["codec"], got["passes"]) == dm.kernel_variant(fmt)
+
+
+def _one_hot_case(cuda, name, rows):
+    """Every finite code of ``name`` laid out as ``rows`` rows of a whole
+    number of 16 codes (zeros after the last code), with A the
+    identity: the product with s = 1, b = 0 is the decoded codes themselves."""
+    fmt = FloatFormat.parse(name)
+    flat = _finite_codes(fmt)
+    cols = -(-flat.size // (rows * 16)) * 16
+    flat = np.concatenate([flat, np.zeros(rows * cols - flat.size, np.int64)])
+    codes = narrow(torch.from_numpy(flat.reshape(rows, cols)), fmt.container_dtype).to(cuda)
+    a = torch.eye(rows, dtype=torch.float32, device=cuda)
+    one, zero = torch.ones((), device=cuda), torch.zeros((), device=cuda)
+    return fmt, a, codes, one, zero
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["S1E2M3", "S1E3M7", "S1E4M3", "S1E5M10", "S1E4M14"])
+@pytest.mark.parametrize("path,rows", [("stream", 8), ("tile", 128)])
+def test_cuda_decodes_every_code_exactly(cuda, name, path, rows):
+    """Each path decodes every finite code of the format inside the kernel
+    exactly as the plain decode: one-hot rows of A pick single codes, and
+    a one-hot TF32 split is exact (A_lo = 0; dec_lo carries the bits TF32
+    drops for S1E4M14)."""
+    fmt, a, codes, one, zero = _one_hot_case(cuda, name, rows)
+    assert dm.plan(a, codes, fmt)["path"] == path
+    want = decode(codes, fmt)
+    got = dm.dequant_matmul(a, codes, fmt, one, zero)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)  # -0.0 comes out as +0.0 (0 + -0), equal as values
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mkn", [(4, 2048, 1024), (8, 8192, 64), (128, 512, 704),
+                                 (128, 4096, 256), (130, 33, 64)], ids=str)
+def test_cuda_same_bits_from_launch_to_launch(cuda, mkn):
+    """No float atomics: two launches give the same bits, on both paths and
+    with K split over a cluster (the fixed-order sums), also with a launch
+    on an all-NaN A between them (no stale shared memory is read)."""
+    m, k, n = mkn
+    fmt = FloatFormat.parse("S1E3M7")
+    a, w = _case(m, k, n, seed=m + k + n)
+    v = compress_variable(torch.from_numpy(w).to(cuda), fmt)
+    a = torch.from_numpy(a).to(cuda)
+    first = dm.dequant_matmul(a, v.codes, fmt, v.s, v.b)
+    for _ in range(3):
+        dm.dequant_matmul(torch.full_like(a, float("nan")), v.codes, fmt, v.s, v.b)
+        again = dm.dequant_matmul(a, v.codes, fmt, v.s, v.b)
+        assert torch.equal(first.view(torch.int32), again.view(torch.int32))
+    _assert_within_rank1_tolerance(first, ref.ref_dequant_matmul(a, v.codes, fmt, v.s, v.b),
+                                   a, v.codes, fmt, v.s, v.b)
