@@ -17,7 +17,16 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
      [17, 512, 2048]; ``fused_aggregate`` on conformer_s leaves [17, 512, 2048]
      and [17, 512, 512] stacked, and [512, 1024] flat, at cohort 8) and at
      small odd-tail shapes in S1E2M3 (u8) and S1E4M14 (u32): codes, streams
-     and decodes bit-exact, PVT sums within rtol=1e-4.  ``dequant_matmul``
+     and decodes bit-exact, PVT sums within rtol=1e-4.  ``pack`` at every
+     width 1-32 in every container it fits, at tile and superblock edges
+     and odd tails, aligned and one element off, its C tiling
+     ``pack_plan``'s.  ``fused_aggregate`` in each of its variants at a
+     cohort where it applies (S1E3M7 compiled in at C = 1, 8, 33; tables for
+     S1E4M3 and S1E2M3; the run-time decode for S1E5M10 and S1E4M14), on
+     vectors and scalars, with a NaN code in a live row too: the variant the
+     one ``kernel_variant`` states, and codes and sums the same bits from
+     two launches with a launch on all-NaN client codes between them; its
+     bound counts the live client planes (a dead client's is never read).  ``dequant_matmul``
      at the serve paths' products in S1E3M7 (decode [4, 2048]x[2048, 11008],
      [4, 11008]x[11008, 2048], [4, 2048]x[2048, 256], [4, 2560]x[2560, 7680];
      prefill [128, 2048]x[2048, 11008], and the prefill products whose tile
@@ -32,7 +41,8 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
      finite code of S1E2M3, S1E3M7, S1E4M3, S1E5M10 and S1E4M14 decoded
      inside the kernel, on both of its paths, exactly as the plain decode.
      Kernel and plain version are timed with CUDA events (3 warm-ups,
-     median of 20, L2 flushed before each launch); beside
+     median of 20, L2 flushed before each launch); ``pack`` and
+     ``fused_aggregate`` also by the profiler's device time alone; beside
      ``dequant_matmul``, ``torch.matmul`` on the pre-decoded f32 weight
      ("matmul alone", not the same function), and its bound both ways:
      the tile path's TF32 passes over the tensor cores' rate, and f32
@@ -139,6 +149,8 @@ DM_PREFILL_SPLIT_K = [(PREFILL, CFG.d_model, CFG.q_dim), (PREFILL, CFG.d_model, 
 TRAIN_CFG = conformer_s.config()
 TRAIN_LEAF = (TRAIN_CFG.n_layers, TRAIN_CFG.d_model, TRAIN_CFG.d_ff)  # stacked w1 / w2ᵀ
 COHORT = 8
+VARIANTS = {agg.DECODE_RUNTIME: "decode at run time", agg.DECODE_S1E3M7: "S1E3M7 compiled in",
+            agg.TABLE: "tables"}
 SOURCES = dict(quantize_stats="src/repro_torch/kernels/csrc/quantize.cu",
                dequantize="src/repro_torch/kernels/csrc/quantize.cu",
                pack="src/repro_torch/kernels/csrc/bitpack.cu",
@@ -189,6 +201,28 @@ class Timer:
             times.append(start.elapsed_time(end))
         return statistics.median(times)
 
+    def device(self, fn, reps: int = 20, warmup: int = 3) -> float:
+        """Device time of one call of ``fn`` from the profiler, with the L2
+        cache flushed before each call: the card's time alone, where the host's
+        time to launch may exceed it (small calls).  Each kernel ``fn``
+        launches once a call; its mean is taken over the launches the profiler
+        recorded, and a shortfall is printed (records can be dropped)."""
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                self._flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_time_total > 0 and "Fill" not in e.key]  # not the flush
+        require(bool(kernels), "the profiler saw no device time")
+        for e in kernels:
+            if e.count != reps:
+                print(f"  profiler: {e.count} of {reps} launches recorded for {e.key[:60]}")
+        return sum(e.device_time_total / e.count for e in kernels) / 1e3
+
 
 def bound_ms(nbytes: int) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
@@ -218,10 +252,14 @@ def phase_environment() -> dict:
     print(f"kernels: {build.library_path()} ({'cached' if cached else 'built'} in "
           f"{build_s:.2f} s)")
     log = (build.library_path().parent / "nvcc.log")
-    if log.exists():
-        for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print("  ptxas:", line.strip().split("ptxas info    : ")[-1])
+    if log.exists():  # ptxas -v: registers of each kernel, and any spills
+        lines = log.read_text().splitlines()
+        regs = [int(x.split("Used ")[1].split()[0]) for x in lines if "Used " in x]
+        spills = [x.strip() for x in lines if "spill" in x and " 0 bytes spill stores" not in x]
+        print(f"  ptxas: {len(regs)} kernels, {min(regs)}-{max(regs)} registers; "
+              f"{len(spills)} with spills")
+        for line in spills:
+            print("  ptxas:", line.split("ptxas info    : ")[-1])
     return dict(smi=smi, build_s=build_s)
 
 
@@ -301,12 +339,42 @@ def check_pack_unpack(codes, width, timer=None):
             dict(shape=list(codes.shape), width=width, max_abs_err=0.0)]
     if timer:
         outs[0].update(ms=timer(lambda: bk.pack(flat, width)),
+                       device_ms=timer.device(lambda: bk.pack(flat, width)),
                        plain_ms=timer(lambda: ref.ref_pack(flat, width)),
                        bound_ms=bound_ms(nbytes))
         outs[1].update(ms=timer(lambda: bk.unpack(words, width, n, codes.dtype)),
                        plain_ms=timer(lambda: ref.ref_unpack(words, width, n, codes.dtype)),
                        bound_ms=bound_ms(nbytes))
     return outs
+
+
+def check_pack_widths() -> list:
+    """``pack`` at every width 1-32 in every container it fits, at tile
+    (8192 fields) and superblock (32) edges and odd tails, from an aligned
+    codes pointer and one off the 16-byte grid: the plain version's words,
+    ``unpack(pack(x)) == x``, and the C entry's tiling ``pack_plan``'s."""
+    rows = []
+    tile = bk.TILE_FIELDS
+    ns = (1, 33, tile - 1, tile, tile + 1, 3 * tile + 31, 100_003)
+    for dtype in (torch.uint8, torch.uint16, torch.uint32):
+        for width in range(1, 8 * dtype.itemsize + 1):
+            for n in ns:
+                g = torch.Generator(device="cuda").manual_seed(n * 64 + width)
+                vals = torch.randint(0, min(1 << width, 1 << 31), (n + 1,), generator=g,
+                                     device="cuda")
+                if width == 32:
+                    vals = vals * 2 + (vals & 1)  # reach the top bit too
+                codes = narrow(vals, dtype)
+                for flat in (codes[:n], codes[1:]):
+                    words = bk.pack(flat, width)
+                    require(bit_equal(words, ref.ref_pack(flat, width)),
+                            f"pack differs w={width} {dtype} n={n} offset={flat.data_ptr() % 16}")
+                    require(bit_equal(bk.unpack(words, width, n, dtype), flat),
+                            f"unpack(pack(codes)) != codes, w={width} {dtype} n={n}")
+                require(bk.kernel_pack_plan(n, width, dtype) == bk.pack_plan(n, width, dtype),
+                        f"pack's C tiling differs from pack_plan w={width} {dtype} n={n}")
+            rows.append(dict(shape=list(ns), width=width, container=str(dtype), max_abs_err=0.0))
+    return rows
 
 
 def check_quantize(x, fmt, want_codes, timer=None):
@@ -326,40 +394,61 @@ def check_quantize(x, fmt, want_codes, timer=None):
     return out
 
 
-def check_fused_aggregate(shape, batch_axes, fmt, timer=None, dead=(1, 6)):
-    """``fused_aggregate`` against its plain version at cohort 8: server and
-    client codes from random weights, per-entry (s, b), dead clients holding a
-    NaN code.  Codes bit-exact, sums within rtol=1e-4."""
-    g = torch.Generator(device="cuda").manual_seed(sum(shape) + batch_axes)
+def check_fused_aggregate(shape, batch_axes, fmt, timer=None, dead=(1, 6), cohort=COHORT,
+                          live_nan=False):
+    """``fused_aggregate`` against its plain version: server and client codes
+    from random weights, per-entry (s, b), dead clients holding a NaN code
+    (with ``live_nan``, one element of live client 0 NaN too).  Codes
+    bit-exact, sums within rtol=1e-4 (NaN where the plain version's are);
+    the kernel's variant the one ``kernel_variant`` states; the same bits
+    from a second launch, after one on all-NaN client codes."""
+    g = torch.Generator(device="cuda").manual_seed(sum(shape) + batch_axes + cohort)
     lead = tuple(shape[:batch_axes])
     srv = qk.quantize(torch.randn(shape, generator=g, device="cuda") * 0.05, fmt)
-    cl = widen(qk.quantize(torch.randn((COHORT,) + shape, generator=g, device="cuda") * 0.05,
+    cl = widen(qk.quantize(torch.randn((cohort,) + shape, generator=g, device="cuda") * 0.05,
                            fmt))
-    w = torch.ones(COHORT, device="cuda")
+    w = torch.ones(cohort, device="cuda")
     nan_code = (((1 << fmt.exp_bits) - 1) << fmt.mant_bits) | (1 << (fmt.mant_bits - 1))
     for c in dead:
         w[c] = 0.0
         cl[c] = nan_code
-    cl = narrow(cl, fmt.container_dtype)
+    if live_nan:
+        require(w[0] > 0, "live_nan needs client 0 alive")
+        cl[0].view(-1)[srv.numel() // 2] = nan_code
     args = (srv, 1 + 0.05 * torch.randn(lead, generator=g, device="cuda"),
-            0.01 * torch.randn(lead, generator=g, device="cuda"), cl,
-            1 + 0.05 * torch.randn((COHORT,) + lead, generator=g, device="cuda"),
-            0.01 * torch.randn((COHORT,) + lead, generator=g, device="cuda"), w, 0.7, fmt)
+            0.01 * torch.randn(lead, generator=g, device="cuda"), narrow(cl, fmt.container_dtype),
+            1 + 0.05 * torch.randn((cohort,) + lead, generator=g, device="cuda"),
+            0.01 * torch.randn((cohort,) + lead, generator=g, device="cuda"), w, 0.7, fmt)
+    plan = agg.plan(agg.layout(*args[:7], batch_axes), fmt)
+    require(plan["variant"] == agg.kernel_variant(fmt, cohort),
+            f"fused_aggregate {fmt.name} C={cohort}: the kernel's variant {plan} is not "
+            f"kernel_variant's")
     codes, sums = agg.fused_aggregate(*args, batch_axes=batch_axes)
+    all_nan = narrow(torch.full_like(cl, nan_code), fmt.container_dtype)
+    agg.fused_aggregate(*args[:3], all_nan, *args[4:], batch_axes=batch_axes)
+    again = agg.fused_aggregate(*args, batch_axes=batch_axes)
     torch.cuda.synchronize()
+    require(bit_equal(codes, again[0]) and bit_equal(sums, again[1]),
+            f"fused_aggregate {fmt.name} {shape} C={cohort}: two launches differ")
     rcodes, rsums = ref.ref_fused_aggregate(*args, batch_axes=batch_axes)
     require(bit_equal(codes, rcodes), f"fused_aggregate codes differ {fmt.name} {shape}")
-    require(bool(torch.isfinite(sums).all()), f"fused_aggregate sums not finite {shape}")
-    err = (sums - rsums).abs().max().item()
-    require(torch.allclose(sums, rsums, rtol=1e-4, atol=1e-4),
+    finite = torch.isfinite(rsums)
+    require(bool(finite.all()) or live_nan, f"fused_aggregate sums not finite {shape}")
+    require(torch.equal(finite, torch.isfinite(sums)), f"fused_aggregate: NaN sums differ {shape}")
+    err = (sums[finite] - rsums[finite]).abs().max().item() if finite.any() else 0.0
+    require(torch.allclose(sums[finite], rsums[finite], rtol=1e-4, atol=1e-4),
             f"fused_aggregate sums differ {fmt.name} {shape}: max err {err}")
-    out = dict(shape=list(shape), fmt=fmt.name, cohort=COHORT, dead=len(dead), max_abs_err=err)
+    out = dict(shape=list(shape), fmt=fmt.name, cohort=cohort, dead=len(dead), live_nan=live_nan,
+               variant=VARIANTS[plan["variant"]], blocks=plan["blocks"], vec=plan["vec"],
+               max_abs_err=err, same_bits=True)
     if timer:
         entries = math.prod(lead)
-        out.update(ms=timer(lambda: agg.fused_aggregate(*args, batch_axes=batch_axes)),
+        run = lambda: agg.fused_aggregate(*args, batch_axes=batch_axes)  # noqa: E731
+        out.update(ms=timer(run), device_ms=timer.device(run),
                    plain_ms=timer(lambda: ref.ref_fused_aggregate(*args, batch_axes=batch_axes)),
                    bound_ms=bound_ms(agg.fused_aggregate_moved_bytes(
-                       COHORT, srv.numel(), fmt, stack_entries=entries)))
+                       cohort, srv.numel(), fmt, stack_entries=entries,
+                       live=cohort - len(dead))))
     return out
 
 
@@ -393,6 +482,7 @@ def check_stacked_mlp(timer) -> dict:
     out = dict(shape=list(STACKED_MLP), quantize_stats_ms=ms_stats,
                quantize_stats_bound_ms=bound_ms(n * (4 + FMT.container_bytes_per_value)),
                pack_ms=timer(lambda: bk.pack(flat, w), reps=5, warmup=1),
+               pack_device_ms=timer.device(lambda: bk.pack(flat, w), reps=5, warmup=1),
                unpack_ms=timer(lambda: bk.unpack(words, w, n, codes.dtype), reps=5, warmup=1),
                pack_bound_ms=bound_ms(n * 2 + 4 * words.numel()))
     return out
@@ -506,6 +596,7 @@ def phase_kernels() -> dict:
         p, u = check_pack_unpack(narrow(vals, dtype), width)
         results["pack"].append(p)
         results["unpack"].append(u)
+    results["pack"] += check_pack_widths()
     # the serve path's shapes, timed
     for shape in (MLP_SLICE, EMBED):
         x = _inputs(shape, FMT, seed=shape[0], specials=False)
@@ -532,6 +623,16 @@ def phase_kernels() -> dict:
         for shape, batch_axes in (((1001,), 0), ((3, 257), 1), ((2, 3, 65), 2)):
             results["fused_aggregate"].append(check_fused_aggregate(shape, batch_axes, fmt))
     results["fused_aggregate"].append(check_fused_aggregate((3, 257), 1, FMT, dead=range(COHORT)))
+    # each variant at a cohort where it applies, on 16-byte vectors and on
+    # scalars, with a NaN code in a live row too: S1E3M7 compiled in at C =
+    # 1 and 33, tables for S1E4M3 and S1E2M3 (u8), the run-time decode for
+    # S1E5M10 (u16) and S1E4M14 (u32)
+    for name, cohort in (("S1E3M7", 1), ("S1E3M7", 33), ("S1E4M3", 8), ("S1E2M3", 33),
+                         ("S1E5M10", 33), ("S1E4M14", 8)):
+        for shape in ((17, 4096), (3, 1001)):
+            results["fused_aggregate"].append(check_fused_aggregate(
+                shape, 1, FloatFormat.parse(name), cohort=cohort,
+                dead=() if cohort == 1 else (1, 6), live_nan=True))
     for shape, batch_axes in ((TRAIN_LEAF, 1), ((TRAIN_CFG.n_layers, 512, 512), 1),
                               ((TRAIN_CFG.d_model, TRAIN_CFG.n_classes), 0)):
         results["fused_aggregate"].append(check_fused_aggregate(shape, batch_axes, FMT, timer))
@@ -559,6 +660,11 @@ def phase_kernels() -> dict:
                       + (f" ({r['bound_by']}; f32 SIMT bound {r['f32_simt_bound_ms']:.4f} ms)"
                          f"  matmul alone {r['matmul_alone_ms']:.4f} ms"
                          if "matmul_alone_ms" in r else ""))
+    for r in results["fused_aggregate"]:
+        print(f"  fused_aggregate {r['fmt']} {r['shape']} C={r['cohort']}: {r['variant']}, "
+              f"{r['blocks']} blocks an entry, {'vectors' if r['vec'] else 'scalars'}, "
+              f"same bits twice {r['same_bits']}"
+              + (f", device {r['device_ms']:.4f} ms" if "device_ms" in r else ""))
     for r in results["dequant_matmul"]:
         print(f"  dequant_matmul {r['fmt']} {r['shape']} {r['path']}: max err over bound "
               f"{r['max_err_over_bound']:.4g}, same bits twice {r['same_bits']}")
@@ -839,8 +945,8 @@ def kernel_line(kernels: dict, counts_by_path: dict) -> dict:
     primary = dict(quantize_stats=list(EMBED), dequantize=list(MLP_SLICE), pack=list(EMBED),
                    unpack=list(EMBED), quantize=[COHORT, *TRAIN_LEAF],
                    fused_aggregate=list(TRAIN_LEAF), dequant_matmul=list(DECODE_W1))
-    keys = ("shape", "path", "ms", "plain_ms", "bound_ms", "bound_by", "f32_simt_bound_ms",
-            "matmul_alone_ms", "max_err_over_bound")
+    keys = ("shape", "path", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+            "f32_simt_bound_ms", "matmul_alone_ms", "max_err_over_bound", "variant")
     entries = []
     for name, rows in kernels["results"].items():
         timed = [r for r in rows if "ms" in r]

@@ -1,15 +1,21 @@
 """CUDA kernels for Hopper: exact-width bitstream pack / unpack.
 
 Wrappers over ``csrc/bitpack.cu`` (see its header for the design and the
-byte bounds).  They take CUDA tensors only; ``ops`` sends CPU tensors to the
-plain versions in ``core.packing``.  The stream is the canonical one of
-``repro_torch.core.packing``, bit-identical with the plain versions.
+byte bounds).  ``pack`` runs in tiles of ``TILE_FIELDS`` fields, one
+superblock (32 fields, ``width`` words) a thread, with the width compiled
+into one kernel of a table (u8: 1-8, u16: 1-16, u32: 1-32);
+:func:`pack_plan` states the tiling.  They take CUDA tensors only; ``ops``
+sends CPU tensors to the plain versions in ``core.packing``.  The stream is
+the canonical one of ``repro_torch.core.packing``, bit-identical with the
+plain versions.
 
 Replaces the Pallas kernels ``repro/kernels/bitpack.py::pack`` and
 ``::unpack``.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -18,6 +24,8 @@ from repro_torch.core.packing import check_width, packed_words
 from . import build
 
 _CONTAINERS = (torch.uint8, torch.uint16, torch.uint32)
+TILE_FIELDS = 8192  # 256 superblocks of 32 fields: a block of 256 threads
+_GRID_X_MAX = 2**31 - 1
 
 
 def _check_container(dtype: torch.dtype, width: int, name: str) -> None:
@@ -27,15 +35,39 @@ def _check_container(dtype: torch.dtype, width: int, name: str) -> None:
         raise ValueError(f"width {width} does not fit {name} of dtype {dtype}")
 
 
+def pack_plan(n: int, width: int, dtype: torch.dtype) -> dict:
+    """The tiling ``pack`` takes for ``n`` codes of ``width`` bits in
+    ``dtype``: ``{"kernel": (container bits, width), "tile_fields",
+    "tile_words" (a full tile's output, 16-byte aligned), "tiles"}``.
+    Raises ``ValueError`` on a width outside 1..32 or the container, or a
+    stream of more tiles than a grid holds."""
+    check_width(width)
+    _check_container(dtype, width, "codes")
+    tiles = -(-n // TILE_FIELDS)
+    if n < 0 or tiles > _GRID_X_MAX:
+        raise ValueError(f"pack takes 0..{_GRID_X_MAX * TILE_FIELDS} codes, got {n}")
+    return dict(kernel=(8 * dtype.itemsize, width), tile_fields=TILE_FIELDS,
+                tile_words=TILE_FIELDS * width // 32, tiles=tiles)
+
+
+def kernel_pack_plan(n: int, width: int, dtype: torch.dtype) -> dict:
+    """:func:`pack_plan`'s numbers as the C entry computes them (on the card)."""
+    p = (ctypes.c_longlong * 3)()
+    build.check(build.load_library().omc_pack_plan(n, width, dtype.itemsize,
+                                                   ctypes.addressof(p)), "pack plan")
+    return dict(kernel=(8 * dtype.itemsize, width), tile_fields=p[0], tile_words=p[1],
+                tiles=p[2])
+
+
 def pack(codes: torch.Tensor, width: int) -> torch.Tensor:
     """Codes (unsigned container, values < 2**width) -> uint32 words."""
     check_width(width)
     if codes.device.type != "cuda":
         raise ValueError(f"pack kernel needs a CUDA tensor, got {codes.device}")
-    _check_container(codes.dtype, width, "codes")
+    n = codes.numel()
+    pack_plan(n, width, codes.dtype)
     if not codes.is_contiguous():
         raise ValueError("codes must be contiguous")
-    n = codes.numel()
     nwords = packed_words(n, width)
     words = torch.empty(nwords, dtype=torch.uint32, device=codes.device)
     lib = build.load_library()

@@ -24,7 +24,7 @@ import subprocess
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-HEADERS = ("minifloat.cuh", "reduce.cuh")
+HEADERS = ("minifloat.cuh", "reduce.cuh", "decode.cuh")
 SOURCES = ("quantize.cu", "bitpack.cu", "agg.cu", "dequant_matmul.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -39,7 +39,10 @@ _SIGNATURES = {
     # name: (restype, argtypes)
     "omc_error_string": (ctypes.c_char_p, [_I]),
     "omc_quantize_stats_blocks": (_LL, [_LL]),
-    "omc_fused_aggregate_blocks": (_LL, [_LL, _I]),
+    # srv, cl, out, m, entries, clients, container_bytes, exp, mant, plan[4]
+    "omc_fused_aggregate_plan": (_I, [_P, _P, _P, _LL, _I, _I, _I, _I, _I, _P]),
+    # n, width, container_bytes, plan[3]
+    "omc_pack_plan": (_I, [_LL, _I, _I, _P]),
     # x, codes, container_bytes, n, exp, mant, stream
     "omc_quantize": (_I, [_P, _P, _I, _LL, _I, _I, _P]),
     # codes, container_bytes, s, b, out, n_per_entry, entries, exp_bits, mant_bits, stream
@@ -51,9 +54,9 @@ _SIGNATURES = {
     # words, nwords, out, container_bytes, n, width, stream
     "omc_unpack": (_I, [_P, _LL, _P, _I, _LL, _I, _P]),
     # srv, srv_s, srv_b, cl, cl_s, cl_b, w, clients, lr, out, container_bytes,
-    # partials, sums, m, entries, exp, mant, stream
-    "omc_fused_aggregate": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _F, _P, _I, _P, _P, _LL, _I,
-                                 _I, _I, _P]),
+    # partials, sums, tickets, m, entries, exp, mant, stream
+    "omc_fused_aggregate": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _F, _P, _I, _P, _P, _P, _LL,
+                                 _I, _I, _I, _P]),
     # a, codes, container_bytes, exp, mant, m, k, n, plan[5]
     "omc_dequant_matmul_plan": (_I, [_P, _P, _I, _I, _I, _I, _I, _I, _P]),
     # a, codes, container_bytes, s, b, out, m, k, n, exp, mant, stream

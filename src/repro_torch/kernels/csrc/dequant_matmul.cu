@@ -14,7 +14,7 @@
 // agree within 2e-5*(|A| @ |s*dec(W) + b|) elementwise.  Every sum is taken
 // in a fixed order (no float atomics): the same bits from launch to launch.
 //
-// Decode (decode_fast): branch-free.  The code's sign and magnitude bits are
+// Decode (decode_fast, decode.cuh): branch-free.  The code's sign and magnitude bits are
 // placed into an f32 bit pattern, sign<<31 | mag<<(23-z), whose value is the
 // minifloat's times 2^(bias-127); one exact multiply by 2^(127-bias) gives
 // the value (a minifloat subnormal lands on an f32 subnormal first; the build
@@ -78,6 +78,7 @@
 // and N edges (zero-filled in shared memory).
 #include <cooperative_groups.h>
 
+#include "decode.cuh"
 #include "minifloat.cuh"
 
 namespace cg = cooperative_groups;
@@ -86,79 +87,6 @@ namespace {
 
 constexpr int kThreads = 256;  // both paths: 8 warps, two warpgroups
 constexpr int kClusterMax = 8;  // portable cluster size
-
-// ---------------------------------------------------------------------------
-// decode
-// ---------------------------------------------------------------------------
-
-// Y == 0: the format is read from f at run time; else S1E{Y}M{Z} is fixed.
-template <int Y, int Z>
-__device__ __forceinline__ float decode_fast(uint32_t c, const omc::Format& f) {
-  const int y = Y ? Y : f.y, z = Y ? Z : f.z;
-  const int bias = (1 << (y - 1)) - 1;
-  const uint32_t mag_mask = (1u << (y + z)) - 1u;
-  const uint32_t top = ((1u << y) - 1u) << z;  // first inf/NaN magnitude
-  const float scale = __uint_as_float(uint32_t(254 - bias) << 23);  // 2^(127-bias)
-  const uint32_t sign = (c << (31 - y - z)) & 0x80000000u;
-  const uint32_t mag = c & mag_mask;
-  const float v = __fmul_rn(__uint_as_float(sign | (mag << (23 - z))), scale);
-  const uint32_t special = sign | (mag == top ? 0x7F800000u : 0x7FC00000u);
-  return mag >= top ? __uint_as_float(special) : v;
-}
-
-// x << S for S >= 0, x >> -S for S < 0.
-template <int S>
-__device__ __forceinline__ uint32_t shift(uint32_t x) {
-  if constexpr (S >= 0) {
-    return x << S;
-  } else {
-    return x >> -S;
-  }
-}
-
-// The two u16 codes of a 32-bit word of a compile-time format, decoded as
-// decode_fast does, but with the fields moved in place for both codes at once
-// (the high code's magnitude is already near its f32 place).  Inf/NaN codes
-// are left to the caller (special_pairs).
-template <int Y, int Z>
-__device__ __forceinline__ void decode_pair(uint32_t w, float& lo, float& hi) {
-  constexpr int kBias = (1 << (Y - 1)) - 1;
-  constexpr uint32_t kMag = (1u << (Y + Z)) - 1u;
-  const float scale = __uint_as_float(uint32_t(254 - kBias) << 23);
-  const uint32_t b0 = (shift<31 - Y - Z>(w) & 0x80000000u) | ((w & kMag) << (23 - Z));
-  const uint32_t b1 = (shift<15 - Y - Z>(w) & 0x80000000u) | shift<7 - Z>(w & (kMag << 16));
-  lo = __fmul_rn(__uint_as_float(b0), scale);
-  hi = __fmul_rn(__uint_as_float(b1), scale);
-}
-
-// Nonzero where a u16 code of the word has the top (inf/NaN) exponent field:
-// the field plus one carries into the sign bit's place, in both halves.
-template <int Y, int Z>
-__device__ __forceinline__ uint32_t special_pairs(uint32_t w) {
-  constexpr uint32_t kTop = ((1u << Y) - 1u) << Z;
-  const uint32_t t = w & (kTop | kTop << 16);
-  return (t + ((1u << Z) | (1u << (Z + 16)))) & ((1u << (Y + Z)) | (1u << (Y + Z + 16)));
-}
-
-// The codes of a 16-byte (8-byte for u8) vector, decoded.
-template <typename T, int V, int Y, int Z>
-__device__ __forceinline__ void decode_vec(float (&wv)[V], const uint4& raw,
-                                           const omc::Format& f) {
-  const T* c = reinterpret_cast<const T*>(&raw);
-  if constexpr (Y != 0 && sizeof(T) == 2) {  // a compile-time u16 format
-    const uint32_t* w = reinterpret_cast<const uint32_t*>(&raw);
-#pragma unroll
-    for (int q = 0; q < V / 2; ++q) decode_pair<Y, Z>(w[q], wv[2 * q], wv[2 * q + 1]);
-    if (special_pairs<Y, Z>(w[0]) | special_pairs<Y, Z>(w[1]) | special_pairs<Y, Z>(w[2]) |
-        special_pairs<Y, Z>(w[3])) {
-#pragma unroll
-      for (int j = 0; j < V; ++j) wv[j] = decode_fast<Y, Z>(uint32_t(c[j]), f);
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < V; ++j) wv[j] = decode_fast<Y, Z>(uint32_t(c[j]), f);
-  }
-}
 
 // ---------------------------------------------------------------------------
 // asynchronous copies
@@ -343,7 +271,7 @@ __global__ void __launch_bounds__(kThreads, MR <= 4 ? 3 : 2)
                                             : 0.0f;
     }
     float wv[V];
-    decode_vec<T, V, Y, Z>(wv, raw, f);
+    omc::decode_vec<T, V, Y, Z>(wv, raw, f);
 #pragma unroll
     for (int m = 0; m < MR; ++m) {
       rs[m] += av[m];
@@ -647,7 +575,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int n = c % kBN, kq = c / kBN;
       float v[4];
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) v[kk] = decode_fast<Y, Z>(rc[(kq * 4 + kk) * kBN + n], f);
+      for (int kk = 0; kk < 4; ++kk) {
+        v[kk] = omc::decode_fast<Y, Z>(rc[(kq * 4 + kk) * kBN + n], f);
+      }
       if (PASSES == 3) {
         const float4 hi = make_float4(tf32_rn(v[0]), tf32_rn(v[1]), tf32_rn(v[2]), tf32_rn(v[3]));
         *reinterpret_cast<float4*>(w_hi + op_off(n, kq)) = hi;

@@ -27,8 +27,8 @@ struct Format {
   float inv_step;  // 1/step, exact power of two when y <= 7
 };
 
-inline Format make_format(int exp_bits, int mant_bits) {
-  Format f;
+__host__ __device__ constexpr Format make_format(int exp_bits, int mant_bits) {
+  Format f{};
   f.y = exp_bits;
   f.z = mant_bits;
   f.bias = (1 << (exp_bits - 1)) - 1;

@@ -2,9 +2,11 @@
 // (quantize_stats in quantize.cu, fused_aggregate in agg.cu).
 //
 // A kernel writes one [4] partial per block into a [entries, blocks, 4]
-// scratch; reduce_partials_kernel then sums each entry's partials in a
-// fixed order.  No float atomics, so the sums, and the (s, b) solved from
-// them, are the same from run to run.
+// scratch; each entry's partials are then summed in a fixed order, by
+// reduce_partials_kernel in a second launch (quantize_stats) or by the
+// entry's last block in the same order (fused_aggregate).  No float
+// atomics, so the sums, and the (s, b) solved from them, are the same from
+// run to run.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -16,9 +16,13 @@ round-to-nearest-even tie fringe of at most 0.5%, where they differ by one
 code (test_kernels.py:129-133's gate: f32 sums over clients taken in
 another order), and its (s, b) within rtol=2e-5, atol=2e-6.
 
+The kernels' host-side rules are stated in Python and tested here:
+``fused_aggregate``'s variant for a format and cohort
+(``agg.kernel_variant``) and ``pack``'s tiling (``bitpack.pack_plan``).
+
 The tests marked ``cuda`` hold each CUDA kernel against its plain version
-on the card (bit-exact codes, streams and decodes; sums within rtol=1e-4);
-without a card they skip.  They need no JAX:
+on the card (bit-exact codes, streams and decodes; sums within rtol=1e-4),
+and the C entries to the rules above; without a card they skip.  They need no JAX:
 ``pytest tests/test_torch_kernels.py -m cuda`` runs them on a machine with
 the card.
 """
@@ -40,7 +44,7 @@ except ImportError:
     jnp = None
 
 from repro_torch.core import packing
-from repro_torch.core.formats import FloatFormat
+from repro_torch.core.formats import FloatFormat, narrow, widen
 from repro_torch.core.store import bit_equal
 from repro_torch.kernels import agg
 from repro_torch.kernels import bitpack as bk
@@ -356,3 +360,187 @@ def test_cuda_fused_aggregate_matches_plain(cuda, name, shape, batch_axes):
     rcodes, rsums = ref.ref_fused_aggregate(*case, 0.7, fmt, batch_axes=batch_axes)
     assert bit_equal(codes, rcodes)
     torch.testing.assert_close(sums, rsums, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# The kernels' host-side rules (stated in Python, decided by the C entries)
+# ---------------------------------------------------------------------------
+
+ZOO = ["S1E2M1", "S1E2M3", "S1E3M7", "S1E4M3", "S1E4M14", "S1E5M10", "S1E8M7", "S1E8M23"]
+# the variant fused_aggregate takes at cohorts 1, 8, 33 and 4096: S1E3M7 compiled
+# in; tables of 4-byte entries while C << bits of them fit in 96 KB; else the
+# run-time decode
+_VARIANTS = {
+    "S1E2M1": (agg.TABLE,) * 3 + (agg.DECODE_RUNTIME,),  # 16 codes: 4096 x 64 B > 96 KB
+    "S1E2M3": (agg.TABLE,) * 3 + (agg.DECODE_RUNTIME,),
+    "S1E3M7": (agg.DECODE_S1E3M7,) * 4,
+    "S1E4M3": (agg.TABLE,) * 3 + (agg.DECODE_RUNTIME,),  # 33 x 1 KB fits
+    "S1E4M14": (agg.DECODE_RUNTIME,) * 4,
+    "S1E5M10": (agg.DECODE_RUNTIME,) * 4,  # 16 bits: no tables
+    "S1E8M7": (agg.DECODE_RUNTIME,) * 4,
+    "S1E8M23": (agg.DECODE_RUNTIME,) * 4,
+}
+
+
+@pytest.mark.parametrize("name", ZOO)
+@pytest.mark.parametrize("clients", [1, 8, 33, 4096])
+def test_fused_aggregate_kernel_variant_rule(name, clients):
+    fmt = FloatFormat.parse(name)
+    want = _VARIANTS[name][[1, 8, 33, 4096].index(clients)]
+    assert agg.kernel_variant(fmt, clients) == want
+    if want == agg.TABLE:
+        assert fmt.bits <= agg.TABLE_MAX_BITS
+        assert (clients << fmt.bits) * 4 <= agg.TABLE_BYTES
+
+
+@pytest.mark.parametrize("clients", [0, -1, 4097])
+def test_fused_aggregate_kernel_variant_rejects_cohorts(clients):
+    with pytest.raises(ValueError, match="clients"):
+        agg.kernel_variant(FloatFormat.parse("S1E3M7"), clients)
+
+
+@pytest.mark.parametrize("width,dtype", [(1, torch.uint8), (6, torch.uint8), (8, torch.uint8),
+                                         (11, torch.uint16), (16, torch.uint16),
+                                         (3, torch.uint32), (19, torch.uint32),
+                                         (32, torch.uint32)], ids=str)
+@pytest.mark.parametrize("n", [0, 1, 8191, 8192, 8193, 811_597_824])
+def test_pack_plan_tiles_superblocks(width, dtype, n):
+    """A tile is 256 superblocks of 32 fields, one a thread; its output,
+    1024 * width bytes, starts on a 16-byte boundary; the kernel is the one
+    compiled for (container bits, width)."""
+    p = bk.pack_plan(n, width, dtype)
+    assert p["kernel"] == (8 * dtype.itemsize, width)
+    assert p["tile_fields"] == bk.TILE_FIELDS == 128 * 64
+    assert p["tile_words"] == 256 * width and (4 * p["tile_words"]) % 16 == 0
+    assert p["tiles"] == -(-n // bk.TILE_FIELDS)
+    # the tiles' words cover the stream, the last tile's only in part
+    assert p["tiles"] * p["tile_words"] >= packing.packed_words(n, width)
+    assert (p["tiles"] - 1) * p["tile_words"] < max(packing.packed_words(n, width), 1)
+
+
+@pytest.mark.parametrize("width,dtype,err", [(0, torch.uint8, ValueError),
+                                             (33, torch.uint32, ValueError),
+                                             (9, torch.uint8, ValueError),
+                                             (17, torch.uint16, ValueError),
+                                             (8, torch.int32, TypeError)], ids=str)
+def test_pack_plan_rejects_widths_and_containers(width, dtype, err):
+    with pytest.raises(err):
+        bk.pack_plan(100, width, dtype)
+
+
+def test_pack_plan_rejects_more_tiles_than_a_grid_holds():
+    with pytest.raises(ValueError, match="codes"):
+        bk.pack_plan((2**31) * bk.TILE_FIELDS, 11, torch.uint16)
+    with pytest.raises(ValueError, match="codes"):
+        bk.pack_plan(-1, 11, torch.uint16)
+
+
+# ---------------------------------------------------------------------------
+# On the card: the redesigned pack and fused_aggregate at their edges
+# ---------------------------------------------------------------------------
+
+_WIDTHS = [(w, d) for d in (torch.uint8, torch.uint16, torch.uint32)
+           for w in range(1, 8 * d.itemsize + 1)]
+# tile edges (8192 fields), superblock edges (32), and odd tails
+_PACK_NS = [1, 31, 32, 33, 8191, 8192, 8193, 3 * 8192 - 1, 3 * 8192 + 1, 100_003]
+
+
+def _cuda_codes(n, width, dtype, device, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    vals = torch.randint(0, min(1 << width, 1 << 31), (n,), generator=g, device=device)
+    if width == 32:
+        vals = vals * 2 + (vals & 1)  # reach the top bit too
+    return narrow(vals, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width,dtype", _WIDTHS, ids=str)
+def test_cuda_pack_matches_plain_at_tile_edges(cuda, width, dtype):
+    """Every width in every container it fits, at tile and superblock edges,
+    and from a codes pointer off the 16-byte grid: the plain version's words,
+    and unpack(pack(x)) == x.  The C entry's tiling is pack_plan's."""
+    for n in _PACK_NS:
+        codes = _cuda_codes(n + 1, width, dtype, cuda, seed=n * 64 + width)
+        for flat in (codes[:n], codes[1:]):  # aligned, and one element off
+            words = bk.pack(flat, width)
+            assert bit_equal(words, ref.ref_pack(flat, width)), (width, n)
+            assert bit_equal(bk.unpack(words, width, n, dtype), flat), (width, n)
+        assert bk.kernel_pack_plan(n, width, dtype) == bk.pack_plan(n, width, dtype)
+
+
+def _cuda_fused_case(name, entries, m, clients, device, seed=0, live_nan=True):
+    """Random codes and scalars for a stacked leaf [entries, m]; clients 1
+    and 5 (where they exist) dead with NaN codes; with ``live_nan`` one
+    element of live client 0 NaN too."""
+    fmt = FloatFormat.parse(name)
+    g = torch.Generator(device=device).manual_seed(seed)
+    shape = (entries, m)
+    srv = qk.quantize(torch.randn(shape, generator=g, device=device) * 0.05, fmt)
+    cl = qk.quantize(torch.randn((clients,) + shape, generator=g, device=device) * 0.05, fmt)
+    nan_code = (((1 << fmt.exp_bits) - 1) << fmt.mant_bits) | (1 << (fmt.mant_bits - 1))
+    w = torch.ones(clients, device=device)
+    wide = widen(cl)
+    for c in (1, 5):
+        if c < clients:
+            w[c] = 0.0
+            wide[c] = nan_code
+    if live_nan:
+        wide[0, entries - 1, m // 2] = nan_code
+    cl = narrow(wide, fmt.container_dtype)
+    args = (srv, 1 + 0.05 * torch.randn(entries, generator=g, device=device),
+            0.01 * torch.randn(entries, generator=g, device=device), cl,
+            1 + 0.05 * torch.randn((clients, entries), generator=g, device=device),
+            0.01 * torch.randn((clients, entries), generator=g, device=device), w)
+    return args, fmt
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["S1E3M7", "S1E2M3", "S1E4M3", "S1E4M14"])
+@pytest.mark.parametrize("entries", [1, 17])
+@pytest.mark.parametrize("clients", [1, 8, 33])
+@pytest.mark.parametrize("m", [4096, 1001], ids=lambda m: f"m{m}")
+def test_cuda_fused_aggregate_each_variant(cuda, name, entries, clients, m):
+    """Each variant (S1E3M7 compiled in; tables for S1E2M3 and S1E4M3; the
+    run-time decode for S1E4M14), on 16-byte vectors (m = 4096) and scalars
+    (m = 1001), with NaN codes in live and dead rows: codes bit-equal to the
+    plain version's, sums within rtol = atol = 1e-4 (NaN where it is), the
+    variant kernel_variant's, and the same bits from two launches with a
+    launch on all-NaN client codes between them."""
+    args, fmt = _cuda_fused_case(name, entries, m, clients, cuda, seed=entries + clients + m)
+    lay = agg.layout(*args, batch_axes=1)
+    assert agg.plan(lay, fmt)["variant"] == agg.kernel_variant(fmt, clients)
+    codes, sums = agg.fused_aggregate(*args, 0.7, fmt, batch_axes=1)
+    rcodes, rsums = ref.ref_fused_aggregate(*args, 0.7, fmt, batch_axes=1)
+    assert bit_equal(codes, rcodes)
+    torch.testing.assert_close(sums, rsums, rtol=1e-4, atol=1e-4, equal_nan=True)
+    nan_code = (((1 << fmt.exp_bits) - 1) << fmt.mant_bits) | (1 << (fmt.mant_bits - 1))
+    all_nan = narrow(torch.full(args[3].shape, nan_code, device=cuda),
+                             fmt.container_dtype)
+    agg.fused_aggregate(*args[:3], all_nan, *args[4:], 0.7, fmt, batch_axes=1)
+    again = agg.fused_aggregate(*args, 0.7, fmt, batch_axes=1)
+    assert bit_equal(codes, again[0]) and bit_equal(sums, again[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["S1E3M7", "S1E4M3", "S1E4M14"])
+def test_cuda_fused_aggregate_all_clients_dead(cuda, name):
+    args, fmt = _cuda_fused_case(name, 3, 2048, 8, cuda, live_nan=False)
+    w = torch.zeros_like(args[6])
+    cl = narrow(torch.full(args[3].shape, 1 << (fmt.bits - 1), device=cuda) - 1,
+                        fmt.container_dtype)  # the largest positive codes: NaN in most formats
+    args = args[:3] + (cl,) + args[4:6] + (w,)
+    codes, sums = agg.fused_aggregate(*args, 0.25, fmt, batch_axes=1)
+    rcodes, rsums = ref.ref_fused_aggregate(*args, 0.25, fmt, batch_axes=1)
+    assert bit_equal(codes, rcodes)
+    assert bool(torch.isfinite(sums).all())
+    torch.testing.assert_close(sums, rsums, rtol=1e-4, atol=1e-4)
+
+
+def test_fused_aggregate_moved_bytes_counts_live_planes():
+    """A dead client's plane is never read: with 6 of 8 clients live the
+    codes moved are (6 + 2) planes, the scalars those of all 8."""
+    fmt = FloatFormat.parse("S1E3M7")
+    n = 17 * 512 * 2048
+    full = agg.fused_aggregate_moved_bytes(8, n, fmt, stack_entries=17)
+    assert agg.fused_aggregate_moved_bytes(8, n, fmt, stack_entries=17, live=8) == full
+    assert full - agg.fused_aggregate_moved_bytes(8, n, fmt, stack_entries=17, live=6) == 2 * n * 2
