@@ -41,7 +41,7 @@ def main() -> None:
     check = {"qwen2.5-3b": cs.phase_card_vs_cpu,
              "recurrentgemma-2b": cs.phase_griffin_card_vs_cpu}
     for arch in args.arch or list(check):
-        sess, _ = serve.build_session(serve.parse_args(["--arch", arch]))
+        sess, _, _ = serve.build_session(serve.parse_args(["--arch", arch]))
         check[arch](sess)
         del sess
         torch.cuda.empty_cache()

@@ -48,10 +48,10 @@ def main() -> None:
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
     torch.backends.cuda.matmul.allow_tf32 = False
-    sess, gen = serve.build_session(serve.parse_args(
+    sess, key, _ = serve.build_session(serve.parse_args(
         ["--arch", args.arch, "--device", args.device] + (["--smoke"] if args.smoke else [])))
     device, cfg = sess.device, sess.cfg
-    toks = torch.randint(0, cfg.vocab, (4, 32), generator=gen, device=device)
+    toks = serve.prompt_tokens(key, 4, 32, cfg.vocab, device)
     cache, logits = sess.prefill(dict(tokens=toks), sess.init_cache(4, 64))
     tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
     for _ in range(2):  # warm: allocator, cuBLAS handles, lazily loaded kernels

@@ -69,8 +69,7 @@ def main() -> None:
     spec = engine.CohortSpec(CohortPlan(num_clients=16, cohort_size=8, failure_rate=0.25))
     specs = conformer.param_specs(cfg)
     key = prng.fold_in(prng.PRNGKey(0), 0xC047)
-    storage = compress_params(conformer.init(torch.Generator(device=device).manual_seed(0), cfg),
-                              specs, omc)
+    storage = compress_params(conformer.init(prng.PRNGKey(0), cfg, device), specs, omc)
     round_fn = engine.make_round_fn(conformer, cfg, specs, omc, sim, spec, data_fn,
                                     fused_agg=True)
 

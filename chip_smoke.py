@@ -17,7 +17,10 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
      [17, 512, 2048]; ``fused_aggregate`` on conformer_s leaves [17, 512, 2048]
      and [17, 512, 512] stacked, and [512, 1024] flat, at cohort 8) and at
      small odd-tail shapes in S1E2M3 (u8) and S1E4M14 (u32): codes, streams
-     and decodes bit-exact, PVT sums within rtol=1e-4.  ``pack`` at every
+     and decodes bit-exact, PVT sums within rtol=1e-4; ``quantize_stats``,
+     ``dequantize`` and ``quantize`` also in the paper tables' formats S1E5M10,
+     S1E3M9, S1E4M8 and S1E5M7 at 0-d and 1-d leaves, conformer_s' stacked
+     vectors [17, 512] and its stacked leaf [17, 512, 2048].  ``pack`` at every
      width 1-32 in every container it fits, at tile and superblock edges
      and odd tails, aligned and one element off, its C tiling
      ``pack_plan``'s.  ``fused_aggregate`` in each of its variants at a
@@ -49,7 +52,8 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
      operations over the rate outside them.
   3. Serve at full width: ``repro_torch.launch.serve.run`` on qwen2.5-3b,
      S1E3M7, --wire-roundtrip, batch 4, prompt 32, 16 new tokens — init on
-     the card, compress (quantize_stats), encode (pack), hot-swap (unpack,
+     the card as the reference draws it (its time printed as ``init_ms``),
+     compress (quantize_stats), encode (pack), hot-swap (unpack,
      checked bit-identical), prefill and decode (dequant_matmul for the 252
      block matrices, dequantize for the embedding rows and the tied head) —
      then three more request batches through ``ServeSession.generate``.
@@ -84,6 +88,24 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
      at full width, cohort 4, 1 fused round of 1 local step, on the card
      (kernels) and on the CPU (plain versions): ledgers equal, trees within
      the gate of phase 7.
+  9. The paper tables at full width: each of ``benchmarks_torch``'s six
+     scripts (Tables 1-4, Figs. 3-4) runs its ``run()`` on conformer_s' full
+     config through ``simulate.run_training``, for ``TABLE_ROUNDS`` rounds
+     (Table 2: ``TABLE2_ROUNDS``, the fewest at which its assertion that
+     S1E2M3 beats before-adaptation holds here), each table printed as the
+     reference prints it, with the script's wall time and peak device
+     memory.  Counters are zeroed around each script: ``quantize_stats`` and
+     ``dequantize`` launched in every one, ``quantize`` in Table 4 and Fig. 3
+     (their PVT-off rows), no plain version.  The byte columns (Table 1's
+     ``mem_ratio`` and ``mem_pct``, Table 2's ``mem_pct``) must equal
+     ``tree_bytes_report`` computed on the host from the config's shapes.
+ 10. Card against CPU for the tables' loop: ``simulate.run_training`` on
+     conformer_s cut to 2 layers at full width, 1 round, cohort 4 of 16
+     with failure rate 0.25, S1E3M7 with PVT and PPQ 0.9, byte ledger on,
+     on the card (kernels) and on the CPU (plain versions): ledgers equal,
+     trees within the gate of phase 7; then ``omc.compress``
+     (``compress_tree``) in five of the tables' formats and policies, PVT
+     on and off: the same codes on the card as on the CPU.
 
 It then prints one JSON line describing each kernel and, last, the line
 ``{"ok": true, "device": {...}}``.  f32 matmuls run in full f32: TF32 is
@@ -94,6 +116,7 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+import importlib
 import json
 import math
 import statistics
@@ -109,10 +132,13 @@ import torch  # noqa: E402
 
 from repro_torch.api.session import ServeSession  # noqa: E402
 from repro_torch.configs import conformer_s, qwen2_5_3b, recurrentgemma_2b  # noqa: E402
-from repro_torch.core import packing, prng  # noqa: E402
+from repro_torch.core import omc as omc_lib  # noqa: E402
+from repro_torch.core import prng  # noqa: E402
 from repro_torch.core.formats import FloatFormat, narrow, widen  # noqa: E402
 from repro_torch.core.omc import OMCConfig  # noqa: E402
-from repro_torch.core.store import bit_equal, compress_variable, decompress_tree  # noqa: E402
+from repro_torch.core.policy import QuantizePolicy  # noqa: E402
+from repro_torch.core.store import (bit_equal, compress_variable, decompress_tree,  # noqa: E402
+                                    is_compressed, tree_bytes_report)
 from repro_torch.core.tree import tree_items, tree_map  # noqa: E402
 from repro_torch.data.synthetic import make_frame_task  # noqa: E402
 from repro_torch.federated import accounting, engine, simulate  # noqa: E402
@@ -173,6 +199,13 @@ GRIFFIN_PER_FORWARD = dict(
     dequant_matmul=8 * (GCFG.n_layers - GCFG.n_super) + 7 * GCFG.n_super,
     dequantize=GCFG.n_layers - GCFG.n_super + 2)
 TREE_MAX, TREE_MEAN = 6e-3, 1e-3  # the reference engine's fused-vs-unfused gate
+# the paper tables' formats that phases 2-8 do not otherwise put through B1-B3
+TABLE_FMTS = ("S1E5M10", "S1E3M9", "S1E4M8", "S1E5M7")
+TABLE_SCRIPTS = ("table1_iid", "table2_adaptation", "table3_noniid", "table4_ablation",
+                 "fig3_pvt_stability", "fig4_ppq_vs_apq")
+PVT_OFF_SCRIPTS = ("table4_ablation", "fig3_pvt_stability")  # rows encoding by `quantize`
+TABLE_ROUNDS = 2  # BENCH_ROUNDS of phase 9's scripts
+TABLE2_ROUNDS = 1  # the fewest at which Table 2's S1E2M3 beats before-adaptation here
 
 
 def require(cond: bool, msg: str) -> None:
@@ -334,7 +367,7 @@ def check_pack_unpack(codes, width, timer=None):
     require(bit_equal(back, ref.ref_unpack(words, width, n, codes.dtype)),
             f"unpack differs w={width} n={n}")
     require(bit_equal(back, flat), f"unpack(pack(codes)) != codes, w={width} n={n}")
-    nbytes = n * codes.dtype.itemsize + 4 * packing.packed_words(n, width)
+    nbytes = bk.pack_moved_bytes(n, width, codes.dtype)
     outs = [dict(shape=list(codes.shape), width=width, max_abs_err=0.0),
             dict(shape=list(codes.shape), width=width, max_abs_err=0.0)]
     if timer:
@@ -344,7 +377,7 @@ def check_pack_unpack(codes, width, timer=None):
                        bound_ms=bound_ms(nbytes))
         outs[1].update(ms=timer(lambda: bk.unpack(words, width, n, codes.dtype)),
                        plain_ms=timer(lambda: ref.ref_unpack(words, width, n, codes.dtype)),
-                       bound_ms=bound_ms(nbytes))
+                       bound_ms=bound_ms(bk.unpack_moved_bytes(n, width, codes.dtype)))
     return outs
 
 
@@ -484,7 +517,7 @@ def check_stacked_mlp(timer) -> dict:
                pack_ms=timer(lambda: bk.pack(flat, w), reps=5, warmup=1),
                pack_device_ms=timer.device(lambda: bk.pack(flat, w), reps=5, warmup=1),
                unpack_ms=timer(lambda: bk.unpack(words, w, n, codes.dtype), reps=5, warmup=1),
-               pack_bound_ms=bound_ms(n * 2 + 4 * words.numel()))
+               pack_bound_ms=bound_ms(bk.pack_moved_bytes(n, w, flat.dtype)))
     return out
 
 
@@ -571,6 +604,24 @@ def check_dequant_matmul_decode(name: str, path: str) -> dict:
                 max_abs_err=0.0, max_err_over_bound=0.0, same_bits=True)
 
 
+def check_table_formats(results: dict) -> None:
+    """The tables' formats (Fig. 3's S1E5M10, Fig. 4's S1E3M9, S1E4M8, S1E5M7)
+    through B1, B2 and B3 at the leaves the tables compress: 0-d and 1-d
+    (Table 4's and Fig. 3's every-parameter policy), conformer_s' stacked
+    vectors and a stacked weight leaf, with specials in all but the 0-d leaf."""
+    for name in TABLE_FMTS:
+        fmt = FloatFormat.parse(name)
+        for shape, batch_axes in (((), 0), ((5,), 0), ((TRAIN_CFG.d_model,), 0),
+                                  ((TRAIN_CFG.n_layers, TRAIN_CFG.d_model), 1),
+                                  (TRAIN_LEAF, 1)):
+            x = _inputs(shape, fmt, seed=sum(shape) + fmt.bits, specials=shape != ())
+            codes, r = check_quantize_stats(x, fmt, batch_axes)
+            results["quantize_stats"].append(r)
+            results["dequantize"].append(check_dequantize(codes, fmt, batch_axes=batch_axes))
+            results["quantize"].append(check_quantize(x, fmt, codes))
+            del x, codes
+
+
 def phase_kernels() -> dict:
     timer = Timer()
     results = {k: [] for k in SOURCES}
@@ -585,6 +636,7 @@ def phase_kernels() -> dict:
             p, u = check_pack_unpack(codes, fmt.bits)
             results["pack"].append(p)
             results["unpack"].append(u)
+    check_table_formats(results)
     # odd tails at every width the wire uses, incl. 2 and 32
     for width, dtype in ((2, torch.uint8), (6, torch.uint8), (11, torch.uint16),
                          (16, torch.uint16), (19, torch.uint32), (32, torch.uint32)):
@@ -718,8 +770,8 @@ def serve_full_width(arch: str, more_batches: int) -> dict:
                   max_memory_allocated=torch.cuda.max_memory_allocated(),
                   launch_counts=ops.launch_counts(), serve_stats=sess.serve_stats())
     report.pop("tokens")
-    for k in ("num_params", "payload_bytes", "fp32_bytes", "payload_ratio", "roundtrip_ms",
-              "prefill_ms", "decode_ms_per_token", "tok_per_s", "more_batches_ms",
+    for k in ("num_params", "init_ms", "payload_bytes", "fp32_bytes", "payload_ratio",
+              "roundtrip_ms", "prefill_ms", "decode_ms_per_token", "tok_per_s", "more_batches_ms",
               "max_memory_allocated", "forward_passes", "launch_counts"):
         print(f"  {arch} {k}: {report[k]}")
     return dict(report=report, session=sess)
@@ -842,7 +894,7 @@ def phase_train() -> dict:
     task = make_frame_task(d_in=cfg.d_in, n_classes=cfg.n_classes, seq_len=256, num_clients=16)
     data_fn = lambda c, r, s: task.batch(c, r, s, 8)  # noqa: E731
     key = prng.PRNGKey(0)
-    params = conformer.init(torch.Generator(device="cuda").manual_seed(0), cfg)
+    params = conformer.init(key, cfg, "cuda")
     n_params = sum(v.numel() for _, v in tree_items(params))
     specs = conformer.param_specs(cfg)
 
@@ -921,7 +973,7 @@ def phase_train_card_vs_cpu() -> tuple:
     omc = OMCConfig.parse(FMT.name)
     sim = simulate.SimConfig(local_steps=1, client_lr=0.1)
     spec = engine.CohortSpec(CohortPlan(num_clients=16, cohort_size=4, failure_rate=0.25))
-    params = conformer.init(torch.Generator(device="cuda").manual_seed(1), cfg)
+    params = conformer.init(prng.PRNGKey(1), cfg, "cuda")
     out = {}
     for dev in ("cuda", "cpu"):
         task = make_frame_task(d_in=cfg.d_in, n_classes=cfg.n_classes, seq_len=256,
@@ -938,6 +990,107 @@ def phase_train_card_vs_cpu() -> tuple:
     require(abs(out["cuda"][1][0]["loss"] - out["cpu"][1][0]["loss"]) < 1e-3,
             "card and CPU losses differ")
     require(gap[0] <= TREE_MAX and gap[1] <= TREE_MEAN, f"card and CPU trees differ: {gap}")
+    return gap
+
+
+# ---------------------------------------------------------------------------
+# 9. the paper tables at full width, 10. the simulate loop, card against CPU
+# ---------------------------------------------------------------------------
+
+
+def phase_tables() -> dict:
+    """Each table script's ``run()`` at full width on the card, counters
+    zeroed around each: ``quantize_stats`` and ``dequantize`` launched in
+    every script, ``quantize`` in those with PVT-off rows, no plain version;
+    every row's losses finite; the byte columns equal to
+    ``tree_bytes_report`` on the host from the config's shapes alone."""
+    results, counts = {}, {}
+    for name in TABLE_SCRIPTS:
+        mod = importlib.import_module(f"benchmarks_torch.{name}")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        rows = mod.run(rounds=TABLE2_ROUNDS if name == "table2_adaptation" else TABLE_ROUNDS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = ops.launch_counts()
+        require_launches(got, name, quantize_stats=None, dequantize=None,
+                         **({"quantize": None} if name in PVT_OFF_SCRIPTS else {}))
+        for r in rows:
+            require(math.isfinite(r["final_eval"]), f"{name}: {r}")
+            for x in r.get("train_curve", []) + r.get("eval_curve", []):
+                require(math.isfinite(x), f"{name}: non-finite curve {r}")
+        results[name] = dict(rows=rows, wall_s=wall, counts=got,
+                             max_memory_allocated=torch.cuda.max_memory_allocated())
+        print(f"  {name}: {wall:.1f} s, peak {results[name]['max_memory_allocated'] / 1e9:.2f} "
+              f"GB, launches {got}")
+        for k, v in got.items():
+            counts[k] = counts.get(k, 0) + v
+    # the byte columns: Table 1's (PPQ 0.9) and Table 2's (PPQ 0.9, streaming)
+    shapes = conformer.init(prng.PRNGKey(0), TRAIN_CFG, "meta")
+    for name, rows in (("table1_iid", results["table1_iid"]["rows"]),
+                       ("table2_adaptation", results["table2_adaptation"]["rows"][1:])):
+        for r in rows:
+            want = tree_bytes_report(shapes, FloatFormat.parse(r["fmt"]), QuantizePolicy(),
+                                     fraction=0.9)
+            require(r["mem_pct"] == round(100 * want["packed_ratio"]),
+                    f"{name} {r['fmt']}: mem_pct {r['mem_pct']} != {want['packed_ratio']}")
+            if "mem_ratio" in r:  # Table 1's packed_ratio column
+                require(r["mem_ratio"] == want["packed_ratio"], f"{name} {r['fmt']}: "
+                        f"packed_ratio {r['mem_ratio']} != {want['packed_ratio']}")
+    print(f"  tables: {sum(r['wall_s'] for r in results.values()):.1f} s in all; "
+          f"byte columns equal tree_bytes_report's from the shapes; launches {counts}")
+    return dict(results=results, counts=counts)
+
+
+def phase_tables_card_vs_cpu() -> tuple:
+    """``simulate.run_training`` (the tables' loop) on conformer_s cut to 2
+    layers at full width, 1 round, cohort 4 of 16 with failure rate 0.25,
+    S1E3M7 with PVT and PPQ 0.9, the byte ledger on: on the card (kernels)
+    and on the CPU (plain versions), ledgers equal, trees within phase 7's
+    gate.  Then ``omc.compress`` (``compress_tree``) of the same params in
+    the tables' formats and policies: the same codes on both."""
+    cfg = dataclasses.replace(TRAIN_CFG, n_layers=2)
+    omc = OMCConfig.parse(FMT.name)
+    sim = simulate.SimConfig(local_steps=1, client_lr=0.1)
+    plan = CohortPlan(num_clients=16, cohort_size=4, failure_rate=0.25)
+    params = conformer.init(prng.PRNGKey(2), cfg, "cuda")
+    on = {dev: tree_map(lambda x, d=dev: x.to(d), params) for dev in ("cuda", "cpu")}
+    out = {}
+    for dev in ("cuda", "cpu"):
+        task = make_frame_task(d_in=cfg.d_in, n_classes=cfg.n_classes, seq_len=32,
+                               num_clients=16, device=dev)
+        ops.reset_launch_counts()
+        out[dev] = simulate.run_training(conformer, cfg, omc, sim, plan,
+                                         lambda c, r, s, t=task: t.batch(c, r, s, 4),
+                                         prng.PRNGKey(0), 1, init_params=on[dev], wire=True)
+        want_backend = "cuda" if dev == "cuda" else "ref"
+        got = ops.launch_counts()
+        require(all(k.endswith(want_backend) for k in got) and got, f"loop on {dev}: {got}")
+    require(ledger(out["cuda"][1]) == ledger(out["cpu"][1]), "card and CPU ledgers differ")
+    require(abs(out["cuda"][1][0]["loss"] - out["cpu"][1][0]["loss"]) < 1e-3,
+            "card and CPU losses differ")
+    gap = tree_gap(out["cuda"][0], out["cpu"][0])
+    require(gap[0] <= TREE_MAX and gap[1] <= TREE_MEAN, f"card and CPU trees differ: {gap}")
+    print(f"  loop, card vs CPU, 2 layers at full width, 1 round: {ledger(out['cuda'][1])}, "
+          f"losses {out['cuda'][1][0]['loss']} / {out['cpu'][1][0]['loss']}, trees max |d| "
+          f"{gap[0]:.3g}, mean |d| {gap[1]:.3g}")
+    every = QuantizePolicy(weights_only=False, min_ndim=0, min_size=1)
+    for name, pvt, policy in (("S1E3M7", True, QuantizePolicy()), ("S1E3M7", False, every),
+                              ("S1E5M10", False, QuantizePolicy()), ("S1E4M14", True, every),
+                              ("S1E3M9", True, QuantizePolicy())):
+        c = OMCConfig.parse(name, pvt=pvt, policy=policy)
+        card, host = (dict(tree_items(omc_lib.compress(on[d], c))) for d in ("cuda", "cpu"))
+        n = 0
+        for path, leaf in card.items():
+            require(is_compressed(leaf) == is_compressed(host[path]), f"compress_tree {path}")
+            if is_compressed(leaf):
+                n += 1
+                require(bit_equal(leaf.codes, host[path].codes),
+                        f"compress_tree {name} pvt={pvt}: codes of {path} differ")
+        print(f"  compress_tree {name} pvt={pvt} {'every parameter' if policy is every else ''}"
+              f": {n} leaves, the same codes on the card and the CPU")
     return gap
 
 
@@ -983,9 +1136,12 @@ def main() -> None:
     torch.cuda.empty_cache()
     trained = phase_train()
     phase_train_card_vs_cpu()
+    tables = phase_tables()
+    phase_tables_card_vs_cpu()
     print(json.dumps(kernel_line(kernels, dict(serve=served["report"]["launch_counts"],
                                                serve_griffin=served_g["report"]["launch_counts"],
-                                               train=trained["counts"]))))
+                                               train=trained["counts"],
+                                               tables=tables["counts"]))))
     print(json.dumps(dict(ok=True, device=dict(platform="gpu", kind=torch.cuda.get_device_name(0),
                                                count=torch.cuda.device_count()))))
 

@@ -4,6 +4,8 @@
 parameter quantization (PPQ).  ``effective_params`` is the simulation mode:
 f32 weights pass through quantize→dequantize(+PVT) per (round, client) PPQ
 mask.  The masks come from ``core.prng`` and equal the reference's.
+``compress`` / ``decompress`` / ``bytes_report`` are the storage mode and
+its byte accounting under one config (``core.store``).
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from .formats import FloatFormat, value_quantize
 from .partial import ppq_mask
 from .policy import QuantizePolicy, path_str, quantizable_names
 from .pvt import pvt_apply, pvt_solve
+from .store import compress_tree, decompress_tree, tree_bytes_report
 from .tree import tree_map_with_path
 
 DEFAULT_POLICY = QuantizePolicy()
@@ -73,3 +76,16 @@ def effective_params(params, cfg: OMCConfig, round_index: int = 0, client_id: in
         return qdq_pvt_leaf(leaf, cfg) if i is not None and mask[i] else leaf
 
     return tree_map_with_path(f, params)
+
+
+def compress(params, cfg: OMCConfig):
+    """Storage-mode compression of a parameter tree (full selection)."""
+    return compress_tree(params, cfg.fmt, cfg.policy, pvt=cfg.pvt)
+
+
+def decompress(ctree):
+    return decompress_tree(ctree)
+
+
+def bytes_report(params, cfg: OMCConfig):
+    return tree_bytes_report(params, cfg.fmt, cfg.policy, fraction=cfg.quantize_fraction)

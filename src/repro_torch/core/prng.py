@@ -16,13 +16,13 @@ Python ints and on int64 tensors, on the CPU and on CUDA.
 
 ``device=None`` means the CPU: small control draws (cohort ids, masks)
 belong on the host, where the callers index with them.  Bulk draws (the
-synthetic frames) pass the device they feed.
+synthetic frames, a model's random init) pass the device they feed.
 """
 
 from __future__ import annotations
 
 import math
-from typing import List, Optional, Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import torch
 
@@ -67,19 +67,64 @@ def split(key: Key, num: int = 2) -> List[Key]:
     return [threefry2x32(key, i >> 32, i & _M32) for i in range(num)]
 
 
-def _counters(n: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
-    i = torch.arange(n, dtype=torch.int64, device=device)
-    return i >> 32, i & _M32
+# Words drawn at a time: a large draw (qwen2.5-3b's 311 M-value embedding)
+# runs in chunks, so that its int64 and float64 temporaries stay near 1 GB.
+_CHUNK = 1 << 24
+
+
+def _words(key: Key, start: int, n: int, device) -> torch.Tensor:
+    """Words ``start .. start + n`` of the stream: the XOR of the two output
+    words for the 64-bit counter ``i``."""
+    i = torch.arange(start, start + n, dtype=torch.int64, device=device)
+    y0, y1 = threefry2x32(key, i >> 32, i & _M32)
+    return y0 ^ y1
+
+
+def _draw(key: Key, shape: Sequence[int], device, fn, dtype: torch.dtype) -> torch.Tensor:
+    """``fn`` (elementwise) of the words of ``shape``, drawn in chunks of
+    :data:`_CHUNK`; the chunks do not change the values.  On the meta device
+    (shapes only) nothing is drawn."""
+    shape = tuple(int(d) for d in shape)
+    if device is not None and torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
+    n = math.prod(shape)
+    if n <= _CHUNK:
+        return fn(_words(key, 0, n, device)).reshape(shape)
+    out = torch.empty(n, dtype=dtype, device=device)
+    for start in range(0, n, _CHUNK):
+        m = min(_CHUNK, n - start)
+        out[start:start + m] = fn(_words(key, start, m, device))
+    return out.reshape(shape)
 
 
 def bits(key: Key, shape: Sequence[int], device=None) -> torch.Tensor:
     """32-bit random words (int64 tensor) of ``shape``, equal to
     ``jax.random.bits(key, shape, uint32)``: word ``i`` (row-major) is the
     XOR of the two output words for the counter ``i``."""
-    shape = tuple(int(d) for d in shape)
-    hi, lo = _counters(math.prod(shape), device)
-    y0, y1 = threefry2x32(key, hi, lo)
-    return (y0 ^ y1).reshape(shape)
+    return _draw(key, shape, device, lambda w: w, torch.int64)
+
+
+def randint(key: Key, shape: Sequence[int], minval: int, maxval: int,
+            device=None) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval)`` (int32 bounds), bit
+    for bit, as an int64 tensor.
+
+    jax draws two words per value from ``split(key)`` and folds them into
+    ``[0, span)``: ``(hi % span)·m + lo % span`` with ``m = (2**16 % span)**2 %
+    span``, every product and sum wrapped to 32 bits as jax's uint32 wraps
+    (so ``m`` is 0 for a span above 2**16), then ``% span``.  The port has
+    no uint32 arithmetic (ROADMAP C2), so it computes in int64 and masks to
+    32 bits where jax's uint32 wraps.
+    """
+    lo_i32, hi_i32 = -(1 << 31), (1 << 31) - 1
+    if not (lo_i32 <= minval <= hi_i32 and lo_i32 <= maxval <= hi_i32):
+        raise ValueError(f"randint takes int32 bounds, got [{minval}, {maxval})")
+    span = maxval - minval if maxval > minval else 1
+    mult = ((2**16 % span) ** 2 & _M32) % span
+    k1, k2 = split(key)
+    hi, lo = bits(k1, shape, device), bits(k2, shape, device)
+    off = ((((hi % span) * mult) & _M32) + lo % span) & _M32
+    return off % span + minval
 
 
 def _float_from_bits(b: torch.Tensor) -> torch.Tensor:
@@ -87,6 +132,14 @@ def _float_from_bits(b: torch.Tensor) -> torch.Tensor:
     one = 0x3F800000
     f = ((b >> 9) | one).to(torch.int32).view(torch.float32)
     return f - 1.0
+
+
+def _uniform(w: torch.Tensor, minval: float, maxval: float) -> torch.Tensor:
+    f = _float_from_bits(w)
+    lo = torch.tensor(minval, dtype=torch.float32, device=f.device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=f.device)
+    scaled = (f.double() * (hi - lo).double() + lo.double()).float()
+    return torch.maximum(lo, scaled)
 
 
 def uniform(key: Key, shape: Sequence[int] = (), device=None, minval: float = 0.0,
@@ -97,11 +150,7 @@ def uniform(key: Key, shape: Sequence[int] = (), device=None, minval: float = 0.
     multiply-add by XLA; torch has none, so it is taken in float64 (the
     product of two f32 values is exact there) and rounded to f32 once.
     """
-    f = _float_from_bits(bits(key, shape, device))
-    lo = torch.tensor(minval, dtype=torch.float32, device=f.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=f.device)
-    scaled = (f.double() * (hi - lo).double() + lo.double()).float()
-    return torch.maximum(lo, scaled)
+    return _draw(key, shape, device, lambda w: _uniform(w, minval, maxval), torch.float32)
 
 
 # XLA's single-precision erf_inv (Giles, "Approximating the erfinv function"),
@@ -137,8 +186,12 @@ def normal(key: Key, shape: Sequence[int] = (), device=None) -> torch.Tensor:
     """``jax.random.normal(key, shape, float32)``: ``sqrt(2)·erf_inv(u)`` with
     ``u`` uniform on ``[nextafter(-1, 0), 1)``.  The uniform is bit-exact;
     the result is within 4 ulp of jax's (see :func:`erf_inv`)."""
-    u = uniform(key, shape, device, -(1.0 - 2.0**-24), 1.0)  # f32 nextafter(-1, 0)
-    return erf_inv(u) * torch.tensor(math.sqrt(2), dtype=torch.float32, device=u.device)
+
+    def fn(w):
+        u = _uniform(w, -(1.0 - 2.0**-24), 1.0)  # f32 nextafter(-1, 0)
+        return erf_inv(u) * torch.tensor(math.sqrt(2), dtype=torch.float32, device=u.device)
+
+    return _draw(key, shape, device, fn, torch.float32)
 
 
 def permutation(key: Key, n: int, device=None) -> torch.Tensor:
@@ -153,8 +206,3 @@ def permutation(key: Key, n: int, device=None) -> torch.Tensor:
         x = x[order]
     return x
 
-
-def generator(key: Key, device: Optional[torch.device] = None) -> torch.Generator:
-    """A ``torch.Generator`` seeded from a key's two words, for draws that
-    need not match jax's bits (random init of a model)."""
-    return torch.Generator(device=device or "cpu").manual_seed((key[0] << 32) | key[1])

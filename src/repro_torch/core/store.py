@@ -4,19 +4,24 @@
 bitfield codes in the smallest uint container (the resident form on the
 device), plus the per-variable transformation scalars ``s, b`` — 0-d for a
 single variable, ``[L, 1, ...]`` for a stack of L independent entries.
+``compress_tree`` is the storage-mode compression of a whole tree under a
+policy; ``tree_bytes_report`` the byte accounting behind the paper's
+"parameter memory / communication" columns.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any
+from typing import Any, Dict
 
 import torch
 
+from . import packing
 from .formats import SIGNED_TWIN, FloatFormat
+from .policy import QuantizePolicy, path_str
 from .pvt import pvt_from_sums
-from .tree import tree_items, tree_map
+from .tree import tree_items, tree_map, tree_map_with_path
 
 
 @dataclasses.dataclass
@@ -93,8 +98,80 @@ def is_compressed(x: Any) -> bool:
     return isinstance(x, CompressedVariable)
 
 
+def compress_tree(params, fmt: FloatFormat, policy: QuantizePolicy, *, pvt: bool = True):
+    """Compress the policy-selected leaves, one (s, b) for each whole leaf
+    (stacked leaves included, as the reference compresses them); the rest
+    pass through unchanged.  The codes are the reference's bit for bit; its
+    (s, b) come from the compensated solver, these from ``quantize_stats``'
+    sums by the closed form: equal up to f32 rounding, which the solve
+    amplifies on a nearly constant leaf (tests/test_torch_omc_bytes.py)."""
+
+    def f(path, leaf):
+        if policy.selects(path_str(path), leaf):
+            return compress_variable(leaf, fmt, pvt=pvt)
+        return leaf
+
+    return tree_map_with_path(f, params)
+
+
 def decompress_tree(ctree):
     return tree_map(lambda x: x.dequantize() if is_compressed(x) else x, ctree)
+
+
+# Byte accounting: the paper's "Parameter Memory / Communication" columns.
+
+_PVT_OVERHEAD_BYTES = 8  # s and b, f32 each
+
+
+def tree_bytes_report(params, fmt: FloatFormat, policy: QuantizePolicy, *,
+                      fraction: float = 1.0) -> Dict[str, Any]:
+    """Theoretical parameter memory / communication for a model under OMC,
+    the reference's report key for key and to the byte.
+
+    ``fraction < 1`` models PPQ: the expected bytes when each client
+    quantizes ``fraction`` of the selected variables and keeps the rest in
+    f32.  ``fp32_bytes`` is everything in f32, ``container_bytes`` the codes
+    in their uint8/16/32 containers (the in-memory form), ``packed_bytes``
+    the exact bitstream (the wire form).  As the reference, it charges 8
+    bytes of (s, b) per selected variable, a stacked leaf included (whose
+    storage holds one pair per entry: ``federated.state.state_bytes_report``
+    counts those), and computes in Python floats truncated by ``int``.
+    Only shapes are read, so meta tensors do.
+    """
+    n_sel = n_tot = 0
+    container = packed = fp32 = overhead = 0
+    num_vars = 0
+    for path, leaf in tree_items(params):
+        if not isinstance(leaf, torch.Tensor):
+            continue
+        sz = leaf.numel()
+        n_tot += sz
+        fp32 += 4 * sz
+        if policy.selects(path_str(path), leaf):
+            n_sel += sz
+            num_vars += 1
+            container += fmt.container_bytes_per_value * sz
+            packed += packing.packed_bytes(sz, fmt)
+            overhead += _PVT_OVERHEAD_BYTES
+        else:
+            container += 4 * sz
+            packed += 4 * sz
+    q = float(fraction)
+    container_ppq = q * container + (1 - q) * fp32
+    packed_ppq = q * packed + (1 - q) * fp32
+    return dict(
+        fmt=fmt.name,
+        num_params=n_tot,
+        num_quantizable=n_sel,
+        num_quantizable_vars=num_vars,
+        coverage=n_sel / max(n_tot, 1),
+        fp32_bytes=fp32,
+        container_bytes=int(container_ppq) + overhead,
+        packed_bytes=int(packed_ppq) + overhead,
+        container_ratio=(container_ppq + overhead) / max(fp32, 1),
+        packed_ratio=(packed_ppq + overhead) / max(fp32, 1),
+        avg_bits_packed=8 * (packed_ppq + overhead) / max(n_tot, 1),
+    )
 
 
 def bit_equal(a: torch.Tensor, b: torch.Tensor) -> bool:

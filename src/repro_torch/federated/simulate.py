@@ -179,14 +179,15 @@ def run_round(family, cfg, specs, omc: OMCConfig, sim: SimConfig, server_params,
 
 def init_storage(family, cfg, omc: OMCConfig, specs, init_key: prng.Key, init_params,
                  device):
-    """(f32 params, storage tree): ``init_params`` if given, else a random
-    init on ``device`` seeded from ``init_key``."""
+    """(f32 params, storage tree): ``init_params`` if given, else
+    ``family.init(init_key, cfg)`` on ``device``, the reference's params
+    within ``prng.normal``'s 4 ulp."""
     if init_params is None:
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("no CUDA device is available; pass device='cpu' (or CPU "
                                "init_params) to train on the CPU")
-        init_params = family.init(prng.generator(init_key, device), cfg)
+        init_params = family.init(init_key, cfg, device)
     with torch.no_grad():
         storage = compress_params(init_params, specs, omc) if omc.enabled else init_params
     return init_params, storage

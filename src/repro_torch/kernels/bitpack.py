@@ -50,6 +50,30 @@ def pack_plan(n: int, width: int, dtype: torch.dtype) -> dict:
                 tile_words=TILE_FIELDS * width // 32, tiles=tiles)
 
 
+def pack_moved_bytes(n: int, width: int, dtype: torch.dtype = torch.uint32) -> int:
+    """Device-memory bytes ``pack`` moves for ``n`` codes of ``width`` bits in
+    ``dtype``, counted over :func:`pack_plan`'s tiles: each full tile reads
+    ``tile_fields`` codes and writes ``tile_words`` words; the last tile reads
+    only the fields below ``n`` and writes only the stream's words.  So the
+    total is the byte bound itself, ``n·itemsize + 4·ceil(n·width/32)``: no
+    padding is read or written (the reference's u32 tiles pad both)."""
+    plan = pack_plan(n, width, dtype)
+    if plan["tiles"] == 0:
+        return 0
+    full = plan["tiles"] - 1
+    last_fields = n - full * plan["tile_fields"]
+    last_words = packed_words(n, width) - full * plan["tile_words"]
+    return (full * (plan["tile_fields"] * dtype.itemsize + 4 * plan["tile_words"])
+            + last_fields * dtype.itemsize + 4 * last_words)
+
+
+def unpack_moved_bytes(n: int, width: int, dtype: torch.dtype = torch.uint32) -> int:
+    """Device-memory bytes ``unpack`` moves: the stream's words read (each
+    thread reads its field's word and the next, from cache), ``n`` codes of
+    ``dtype`` written; the same count as :func:`pack_moved_bytes`."""
+    return pack_moved_bytes(n, width, dtype)
+
+
 def kernel_pack_plan(n: int, width: int, dtype: torch.dtype) -> dict:
     """:func:`pack_plan`'s numbers as the C entry computes them (on the card)."""
     p = (ctypes.c_longlong * 3)()

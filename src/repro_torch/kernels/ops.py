@@ -10,6 +10,12 @@ There is no fallback: no switch sends a CUDA tensor to a plain version.
 Every call bumps a counter keyed ``"<op>.cuda"`` or ``"<op>.ref"`` after
 its launch returns, so a run can show that its path went through the
 kernels (:func:`launch_counts`, :func:`reset_launch_counts`).
+
+The reference's public names are here too, over the same counter and the
+same functions: :func:`dispatch_counts`, :func:`reset_dispatch_counts`,
+:func:`pack_bits` and :func:`unpack_bits`.  The counting rule differs from
+the reference's: it counts once per traced specialization (its wrappers are
+jitted), the port counts once per launch (per call), eager as it is.
 """
 
 from __future__ import annotations
@@ -38,6 +44,19 @@ def launch_counts() -> Dict[str, int]:
 
 def reset_launch_counts() -> None:
     _LAUNCHES.clear()
+
+
+def dispatch_counts() -> Dict[str, int]:
+    """The reference's name for :func:`launch_counts`: the same counter.
+    Counts are per launch (one per call), not per traced specialization as
+    the reference's are; keys are ``"<op>.cuda"`` or ``"<op>.ref"``, with
+    ``pack``/``unpack`` for :func:`pack_bits`/:func:`unpack_bits`."""
+    return launch_counts()
+
+
+def reset_dispatch_counts() -> None:
+    """The reference's name for :func:`reset_launch_counts` (one counter)."""
+    reset_launch_counts()
 
 
 def _on_cuda(op: str, *tensors: Optional[torch.Tensor]) -> bool:
@@ -120,6 +139,19 @@ def unpack(words: torch.Tensor, width: int, n: int,
         out = ref.ref_unpack(words, width, n, dtype)
         _LAUNCHES["unpack.ref"] += 1
     return out
+
+
+def pack_bits(codes: torch.Tensor, width: int) -> torch.Tensor:
+    """The reference's name for :func:`pack`; counted as ``pack.<backend>``,
+    once per launch."""
+    return pack(codes, width)
+
+
+def unpack_bits(words: torch.Tensor, width: int, n: int,
+                dtype: torch.dtype = torch.uint32) -> torch.Tensor:
+    """The reference's name for :func:`unpack`; counted as
+    ``unpack.<backend>``, once per launch."""
+    return unpack(words, width, n, dtype)
 
 
 def fused_aggregate(srv_codes, srv_s, srv_b, cl_codes, cl_s, cl_b, weights, lr: float,

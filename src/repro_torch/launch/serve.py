@@ -31,6 +31,7 @@ import torch
 from repro_torch.api.codecs import encode_payload
 from repro_torch.api.session import ServeSession, sync
 from repro_torch.configs.registry import get_arch
+from repro_torch.core import prng
 from repro_torch.core.omc import OMCConfig
 from repro_torch.core.store import trees_bit_equal
 from repro_torch.federated.state import compress_params, state_bytes_report
@@ -54,10 +55,11 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def build_session(args: argparse.Namespace) -> Tuple[ServeSession, torch.Generator]:
-    """Random weights from ``--seed`` on ``--device``, compressed to ``--fmt``,
-    behind a fresh :class:`ServeSession`; also returns the generator, which
-    then draws the prompts."""
+def build_session(args: argparse.Namespace) -> Tuple[ServeSession, prng.Key, float]:
+    """The reference's random weights from ``PRNGKey(--seed)`` (within
+    ``prng.normal``'s 4 ulp) on ``--device``, compressed to ``--fmt``,
+    behind a fresh :class:`ServeSession`; also returns the key, from which
+    :func:`prompt_tokens` draws the prompts, and the init's wall ms."""
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass --device cpu to serve on the CPU")
@@ -66,22 +68,34 @@ def build_session(args: argparse.Namespace) -> Tuple[ServeSession, torch.Generat
         raise SystemExit(f"{args.arch} ({arch.FAMILY}) has no decode step")
     cfg = arch.smoke_config() if args.smoke else arch.config()
     family = get_family(arch.FAMILY)
-    gen = torch.Generator(device=device).manual_seed(args.seed)
-    params = family.init(gen, cfg)
+    key = prng.PRNGKey(args.seed)
+    sync(device)
+    t0 = time.perf_counter()
+    params = family.init(key, cfg, device)
+    sync(device)
+    init_ms = (time.perf_counter() - t0) * 1e3
     storage = compress_params(params, family.param_specs(cfg), OMCConfig.parse(args.fmt))
     del params
-    return ServeSession(family, cfg, storage), gen
+    return ServeSession(family, cfg, storage), key, init_ms
+
+
+def prompt_tokens(key: prng.Key, batch: int, prompt_len: int, vocab: int,
+                  device) -> torch.Tensor:
+    """The reference's prompts: ``randint(fold_in(key, 1), (batch,
+    prompt_len), 0, vocab)``, bit for bit."""
+    return prng.randint(prng.fold_in(key, 1), (batch, prompt_len), 0, vocab, device)
 
 
 def run(args: argparse.Namespace) -> Dict[str, Any]:
     """Serve once as the CLI would; return the report (and the live session
     under ``"session"``, which ``main`` does not print)."""
     log = Logger(quiet=args.quiet)
-    sess, gen = build_session(args)
+    sess, key, init_ms = build_session(args)
     storage, cfg, device = sess.storage, sess.cfg, sess.device
     report: Dict[str, Any] = dict(arch=args.arch, smoke=bool(args.smoke),
                                   fmt=OMCConfig.parse(args.fmt).fmt.name,
-                                  device=str(device), **state_bytes_report(storage))
+                                  device=str(device), init_ms=init_ms,
+                                  **state_bytes_report(storage))
     if args.wire_roundtrip:
         sync(device)
         t0 = time.perf_counter()
@@ -99,7 +113,7 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
     del storage
 
     b, s = args.batch, args.prompt_len
-    toks = torch.randint(0, cfg.vocab, (b, s), generator=gen, device=device)
+    toks = prompt_tokens(key, b, s, cfg.vocab, device)
     cache = sess.init_cache(b, 4 * (s + args.gen), dtype=torch.float32)
     sync(device)
     t0 = time.perf_counter()

@@ -20,12 +20,14 @@ axes apart (``federated.state.n_stack_axes``).
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core import prng
 from repro_torch.core.store import is_compressed
 from repro_torch.core.tree import tree_items, tree_map
 from repro_torch.kernels import ops
@@ -65,15 +67,35 @@ class Materializer:
 IDENTITY_MAT = Materializer()
 
 
-def dense_init(gen: torch.Generator, d_in: int, d_out: int, *,
-               layers: Tuple[int, ...] = (), scale: float = 1.0) -> torch.Tensor:
-    """N(0, scale²/d_in) weights of shape ``layers + (d_in, d_out)``."""
-    w = torch.randn(layers + (d_in, d_out), generator=gen, device=gen.device)
-    return w.mul_(scale / d_in ** 0.5)
+def as_f32(x: float) -> float:
+    """``x`` rounded to f32: a float64 constant applied to an f32 array in
+    JAX (x64 off) multiplies as its f32 value."""
+    return torch.tensor(x, dtype=torch.float32).item()
 
 
-def embed_init(gen: torch.Generator, vocab: int, d: int) -> torch.Tensor:
-    return torch.randn((vocab, d), generator=gen, device=gen.device).mul_(0.02)
+def dense_init(key: prng.Key, d_in: int, d_out: int, scale: float = 1.0,
+               device=None) -> torch.Tensor:
+    """``jax.random.normal(key, (d_in, d_out)) · f32(scale / sqrt(d_in))``,
+    the reference's ``dense_init``, within :func:`prng.normal`'s 4 ulp."""
+    return prng.normal(key, (d_in, d_out), device).mul_(as_f32(scale / math.sqrt(d_in)))
+
+
+def embed_init(key: prng.Key, vocab: int, d: int, device=None) -> torch.Tensor:
+    return prng.normal(key, (vocab, d), device).mul_(as_f32(0.02))
+
+
+def init_layers(layer_init: Callable[[prng.Key], dict], keys) -> dict:
+    """``stack_layer_params([layer_init(k) for k in keys])``, with each layer
+    copied into its slot of the stacked leaves as soon as it is drawn, so
+    that a full-width init holds the stack and one layer, not two copies."""
+    out = None
+    for i, k in enumerate(keys):
+        layer = layer_init(k)
+        if out is None:
+            out = tree_map(lambda a: a.new_empty((len(keys),) + tuple(a.shape)), layer)
+        for (_, dst), (_, src) in zip(tree_items(out), tree_items(layer)):
+            dst[i].copy_(src)
+    return out
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -203,7 +225,3 @@ def scan_blocks(block_fn: Callable, stacked_params, x: torch.Tensor,
             x = body(x, i)
     return x
 
-
-def stack_layer_params(layer_list):
-    """``[{...}, {...}]`` -> ``{...}`` with leaves stacked on a new leading axis."""
-    return tree_map(lambda *xs: torch.stack(xs, 0), *layer_list)

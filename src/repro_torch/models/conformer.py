@@ -18,14 +18,18 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import prng
+
 from . import attention as attn
 from .common import (
     RSPEC,
     Materializer,
     ParamSpec,
     apply_rope,
+    as_f32,
     dense_init,
     group_norm,
+    init_layers,
     layer_norm,
     scan_blocks,
     softmax_xent_chunked,
@@ -61,43 +65,51 @@ class ConformerConfig:
         return self.n_layers * blk + self.d_in * d + d + d * self.n_classes + self.n_classes
 
 
-def init(gen: torch.Generator, cfg: ConformerConfig) -> Dict[str, Any]:
-    """Random f32 params on ``gen.device``, block leaves stacked on a layer axis.
+def _block_init(key: prng.Key, cfg: ConformerConfig, device) -> Dict[str, Any]:
+    """One block, drawn from the reference's keys: ``split(key, 10)``, with
+    ``ks[0]`` drawn again for ``ffn2``'s ``w2`` as the reference draws it."""
+    ks = prng.split(key, 10)
+    d, f = cfg.d_model, cfg.d_ff
 
-    Same shapes and scales as the reference's init, not its numbers (those
-    come from ``jax.random``; tests carry them across instead)."""
-    dev = gen.device
-    d, f, L = cfg.d_model, cfg.d_ff, (cfg.n_layers,)
+    def ones(n):
+        return torch.ones((n,), device=device)
 
-    def ones(*shape):
-        return torch.ones(L + shape, device=dev)
+    def zeros(n):
+        return torch.zeros((n,), device=device)
 
-    def zeros(*shape):
-        return torch.zeros(L + shape, device=dev)
+    def ffn(k1, k2):
+        return dict(scale=ones(d), bias=zeros(d), w1=dense_init(k1, d, f, device=device),
+                    b1=zeros(f), w2=dense_init(k2, f, d, device=device), b2=zeros(d))
 
-    def ffn():
-        return dict(scale=ones(d), bias=zeros(d), w1=dense_init(gen, d, f, layers=L),
-                    b1=zeros(f), w2=dense_init(gen, f, d, layers=L), b2=zeros(d))
-
-    blocks = dict(
-        ffn1=ffn(),
+    return dict(
+        ffn1=ffn(ks[0], ks[1]),
         attn_scale=ones(d), attn_bias=zeros(d),
-        wq=dense_init(gen, d, d, layers=L), wk=dense_init(gen, d, d, layers=L),
-        wv=dense_init(gen, d, d, layers=L), wo=dense_init(gen, d, d, layers=L),
+        wq=dense_init(ks[2], d, d, device=device), wk=dense_init(ks[3], d, d, device=device),
+        wv=dense_init(ks[4], d, d, device=device), wo=dense_init(ks[5], d, d, device=device),
         conv_scale=ones(d), conv_bias=zeros(d),
-        conv_pw1=dense_init(gen, d, 2 * d, layers=L),
-        conv_dw=torch.randn(L + (cfg.conv_kernel, d), generator=gen, device=dev).mul_(0.1),
+        conv_pw1=dense_init(ks[6], d, 2 * d, device=device),
+        conv_dw=prng.normal(ks[7], (cfg.conv_kernel, d), device).mul_(as_f32(0.1)),
         conv_gn_scale=ones(d), conv_gn_bias=zeros(d),
-        conv_pw2=dense_init(gen, d, d, layers=L),
-        ffn2=ffn(),
+        conv_pw2=dense_init(ks[8], d, d, device=device),
+        ffn2=ffn(ks[9], ks[0]),
         out_scale=ones(d), out_bias=zeros(d),
     )
+
+
+def init(key: prng.Key, cfg: ConformerConfig, device=None) -> Dict[str, Any]:
+    """The reference's ``init(key, cfg)``: the same key tree (``split(key,
+    3)``, one key a block), so the same params within ``prng.normal``'s 4
+    ulp; f32 on ``device`` (the CPU by default), block leaves stacked on a
+    layer axis."""
+    kb, ki, ko = prng.split(key, 3)
+    d = cfg.d_model
     return dict(
-        in_proj=dense_init(gen, cfg.d_in, d),
-        in_bias=torch.zeros((d,), device=dev),
-        blocks=blocks,
-        out_proj=dense_init(gen, d, cfg.n_classes),
-        out_bias=torch.zeros((cfg.n_classes,), device=dev),
+        in_proj=dense_init(ki, cfg.d_in, d, device=device),
+        in_bias=torch.zeros((d,), device=device),
+        blocks=init_layers(lambda k: _block_init(k, cfg, device),
+                           prng.split(kb, cfg.n_layers)),
+        out_proj=dense_init(ko, d, cfg.n_classes, device=device),
+        out_bias=torch.zeros((cfg.n_classes,), device=device),
     )
 
 

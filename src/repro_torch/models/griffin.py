@@ -25,10 +25,12 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.core import prng
 
 from . import attention as attn
 from .common import (
@@ -36,10 +38,12 @@ from .common import (
     ParamSpec,
     RSPEC,
     apply_rope,
+    as_f32,
     dense_init,
     embed_init,
     embed_lookup,
     gelu,
+    init_layers,
     linear,
     rms_norm,
     stack_entry,
@@ -104,42 +108,45 @@ class GriffinConfig:
 # ---------------------------------------------------------------------------
 
 
-def _rec_init(gen: torch.Generator, cfg: GriffinConfig, L: Tuple[int, ...]) -> Dict[str, Any]:
-    """Recurrent blocks' params, stacked on the leading axes ``L``."""
-    d, r, f, dev = cfg.d_model, cfg.lru, cfg.d_ff, gen.device
+def _rec_init(key: prng.Key, cfg: GriffinConfig, device) -> Dict[str, Any]:
+    """One recurrent block from ``split(key, 7)``; ``ks[0]`` and ``ks[1]``
+    draw ``w3`` and ``w2`` again, as the reference draws them."""
+    ks = prng.split(key, 7)
+    d, r, f = cfg.d_model, cfg.lru, cfg.d_ff
     # Λ so that a_t = exp(-8·softplus(Λ)·r_t) equals a_param_init at r_t = 1
     s0 = -math.log(cfg.a_param_init) / 8.0
     lam = math.log(math.expm1(s0))
     return dict(
-        norm=torch.ones(L + (d,), device=dev),
-        w_x=dense_init(gen, d, r, layers=L),  # main branch
-        w_gate=dense_init(gen, d, r, layers=L),  # gelu gate branch
-        conv_w=torch.randn(L + (cfg.conv_kernel, r), generator=gen, device=dev).mul_(0.1),
-        lam=torch.full(L + (r,), lam, device=dev),  # RG-LRU Λ (1-D: not compressed)
-        w_rg=dense_init(gen, r, r, layers=L, scale=0.5),  # recurrence gate
-        b_rg=torch.zeros(L + (r,), device=dev),
-        w_ig=dense_init(gen, r, r, layers=L, scale=0.5),  # input gate
-        b_ig=torch.zeros(L + (r,), device=dev),
-        w_out=dense_init(gen, r, d, layers=L),
-        mlp_norm=torch.ones(L + (d,), device=dev),
-        w1=dense_init(gen, d, f, layers=L),
-        w3=dense_init(gen, d, f, layers=L),
-        w2=dense_init(gen, f, d, layers=L),
+        norm=torch.ones((d,), device=device),
+        w_x=dense_init(ks[0], d, r, device=device),  # main branch
+        w_gate=dense_init(ks[1], d, r, device=device),  # gelu gate branch
+        conv_w=prng.normal(ks[2], (cfg.conv_kernel, r), device).mul_(as_f32(0.1)),
+        lam=torch.full((r,), lam, device=device),  # RG-LRU Λ (1-D: not compressed)
+        w_rg=dense_init(ks[3], r, r, scale=0.5, device=device),  # recurrence gate
+        b_rg=torch.zeros((r,), device=device),
+        w_ig=dense_init(ks[4], r, r, scale=0.5, device=device),  # input gate
+        b_ig=torch.zeros((r,), device=device),
+        w_out=dense_init(ks[5], r, d, device=device),
+        mlp_norm=torch.ones((d,), device=device),
+        w1=dense_init(ks[6], d, f, device=device),
+        w3=dense_init(ks[0], d, f, device=device),
+        w2=dense_init(ks[1], f, d, device=device),
     )
 
 
-def _att_init(gen: torch.Generator, cfg: GriffinConfig, L: Tuple[int, ...]) -> Dict[str, Any]:
-    d, f, dev = cfg.d_model, cfg.d_ff, gen.device
+def _att_init(key: prng.Key, cfg: GriffinConfig, device) -> Dict[str, Any]:
+    ks = prng.split(key, 7)
+    d, f = cfg.d_model, cfg.d_ff
     return dict(
-        norm=torch.ones(L + (d,), device=dev),
-        wq=dense_init(gen, d, cfg.n_heads * cfg.hd, layers=L),
-        wk=dense_init(gen, d, cfg.n_kv_heads * cfg.hd, layers=L),
-        wv=dense_init(gen, d, cfg.n_kv_heads * cfg.hd, layers=L),
-        wo=dense_init(gen, cfg.n_heads * cfg.hd, d, layers=L),
-        mlp_norm=torch.ones(L + (d,), device=dev),
-        w1=dense_init(gen, d, f, layers=L),
-        w3=dense_init(gen, d, f, layers=L),
-        w2=dense_init(gen, f, d, layers=L),
+        norm=torch.ones((d,), device=device),
+        wq=dense_init(ks[0], d, cfg.n_heads * cfg.hd, device=device),
+        wk=dense_init(ks[1], d, cfg.n_kv_heads * cfg.hd, device=device),
+        wv=dense_init(ks[2], d, cfg.n_kv_heads * cfg.hd, device=device),
+        wo=dense_init(ks[3], cfg.n_heads * cfg.hd, d, device=device),
+        mlp_norm=torch.ones((d,), device=device),
+        w1=dense_init(ks[4], d, f, device=device),
+        w3=dense_init(ks[5], d, f, device=device),
+        w2=dense_init(ks[6], f, d, device=device),
     )
 
 
@@ -177,23 +184,26 @@ def _att_specs() -> Dict[str, ParamSpec]:
     )
 
 
-def init(gen: torch.Generator, cfg: GriffinConfig) -> Dict[str, Any]:
-    """Random f32 params on ``gen.device``, in the reference's tree.
-
-    The draws differ from the reference's (``jax.random`` vs a
-    ``torch.Generator``); the distributions, the constant Λ and the tree
-    are the same.
-    """
+def init(key: prng.Key, cfg: GriffinConfig, device=None) -> Dict[str, Any]:
+    """The reference's ``init(key, cfg)``: the same key tree (``split(key,
+    4)``, one key a block; an untied head drawn from the embedding's key),
+    so the same params within ``prng.normal``'s 4 ulp; f32 on ``device``
+    (the CPU by default), in the reference's tree, the constant Λ included."""
+    kr, ka, ke, kx = prng.split(key, 4)
+    n_rec = cfg.n_super * cfg.rec_per_super
+    rec = init_layers(lambda k: _rec_init(k, cfg, device), prng.split(kr, max(n_rec, 1)))
+    rec = {k: v.reshape((cfg.n_super, cfg.rec_per_super) + v.shape[1:]) for k, v in rec.items()}
     params = dict(
-        embed=embed_init(gen, cfg.vocab, cfg.d_model),
-        super_blocks=dict(rec=_rec_init(gen, cfg, (cfg.n_super, cfg.rec_per_super)),
-                          att=_att_init(gen, cfg, (cfg.n_super,))),
-        final_norm=torch.ones((cfg.d_model,), device=gen.device),
+        embed=embed_init(ke, cfg.vocab, cfg.d_model, device=device),
+        super_blocks=dict(rec=rec, att=init_layers(lambda k: _att_init(k, cfg, device),
+                                                   prng.split(ka, max(cfg.n_super, 1)))),
+        final_norm=torch.ones((cfg.d_model,), device=device),
     )
     if cfg.n_extra_rec:
-        params["extra_rec"] = _rec_init(gen, cfg, (cfg.n_extra_rec,))
+        params["extra_rec"] = init_layers(lambda k: _rec_init(k, cfg, device),
+                                          prng.split(kx, cfg.n_extra_rec))
     if not cfg.tie_embeddings:
-        params["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab)
+        params["lm_head"] = dense_init(ke, cfg.d_model, cfg.vocab, device=device)
     return params
 
 

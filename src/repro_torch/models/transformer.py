@@ -19,6 +19,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.core import prng
+
 from . import attention as attn
 from .common import (
     Materializer,
@@ -28,6 +30,7 @@ from .common import (
     dense_init,
     embed_init,
     embed_lookup,
+    init_layers,
     linear,
     rms_norm,
     stack_entry,
@@ -69,38 +72,43 @@ class TransformerConfig:
 # ---------------------------------------------------------------------------
 
 
-def init(gen: torch.Generator, cfg: TransformerConfig) -> Dict[str, Any]:
-    """Random f32 params on ``gen.device``, block leaves stacked on a layer axis.
-
-    The draws differ from the reference's (``jax.random`` vs a
-    ``torch.Generator``); the distributions and the tree are the same.
-    """
-    d, f, L = cfg.d_model, cfg.d_ff, (cfg.n_layers,)
-    dev = gen.device
-    blocks = dict(
-        attn_norm=torch.ones((cfg.n_layers, d), device=dev),
-        wq=dense_init(gen, d, cfg.q_dim, layers=L),
-        wk=dense_init(gen, d, cfg.kv_dim, layers=L),
-        wv=dense_init(gen, d, cfg.kv_dim, layers=L),
-        wo=dense_init(gen, cfg.q_dim, d, layers=L),
-        mlp_norm=torch.ones((cfg.n_layers, d), device=dev),
-        w1=dense_init(gen, d, f, layers=L),
-        w3=dense_init(gen, d, f, layers=L),
-        w2=dense_init(gen, f, d, layers=L),
+def _block_init(key: prng.Key, cfg: TransformerConfig, device) -> Dict[str, Any]:
+    """One block from ``split(key, 6)``; ``ks[4]`` draws ``w1`` and, again,
+    ``w2``, as the reference draws them."""
+    ks = prng.split(key, 6)
+    d, f = cfg.d_model, cfg.d_ff
+    p = dict(
+        attn_norm=torch.ones((d,), device=device),
+        wq=dense_init(ks[0], d, cfg.q_dim, device=device),
+        wk=dense_init(ks[1], d, cfg.kv_dim, device=device),
+        wv=dense_init(ks[2], d, cfg.kv_dim, device=device),
+        wo=dense_init(ks[3], cfg.q_dim, d, device=device),
+        mlp_norm=torch.ones((d,), device=device),
+        w1=dense_init(ks[4], d, f, device=device),
+        w3=dense_init(ks[5], d, f, device=device),
+        w2=dense_init(ks[4], f, d, device=device),
     )
     if cfg.qkv_bias:
-        blocks.update(
-            bq=torch.zeros((cfg.n_layers, cfg.q_dim), device=dev),
-            bk=torch.zeros((cfg.n_layers, cfg.kv_dim), device=dev),
-            bv=torch.zeros((cfg.n_layers, cfg.kv_dim), device=dev),
-        )
+        p.update(bq=torch.zeros((cfg.q_dim,), device=device),
+                 bk=torch.zeros((cfg.kv_dim,), device=device),
+                 bv=torch.zeros((cfg.kv_dim,), device=device))
+    return p
+
+
+def init(key: prng.Key, cfg: TransformerConfig, device=None) -> Dict[str, Any]:
+    """The reference's ``init(key, cfg)``: the same key tree (``split(key,
+    3)``, one key a block), so the same params within ``prng.normal``'s 4
+    ulp; f32 on ``device`` (the CPU by default), block leaves stacked on a
+    layer axis."""
+    kb, ke, kh = prng.split(key, 3)
     params = dict(
-        embed=embed_init(gen, cfg.vocab, d),
-        blocks=blocks,
-        final_norm=torch.ones((d,), device=dev),
+        embed=embed_init(ke, cfg.vocab, cfg.d_model, device=device),
+        blocks=init_layers(lambda k: _block_init(k, cfg, device),
+                           prng.split(kb, cfg.n_layers)),
+        final_norm=torch.ones((cfg.d_model,), device=device),
     )
     if not cfg.tie_embeddings:
-        params["lm_head"] = dense_init(gen, d, cfg.vocab)
+        params["lm_head"] = dense_init(kh, cfg.d_model, cfg.vocab, device=device)
     return params
 
 

@@ -65,7 +65,7 @@ def test_hetero_tier_round_matches_reference():
 def test_client_chunk_and_data_mode_leave_the_round_unchanged():
     omc = OMCConfig.parse("S1E3M7")
     specs = cf.param_specs(CFG)
-    params = cf.init(torch.Generator().manual_seed(0), CFG)
+    params = cf.init(prng.PRNGKey(0), CFG)
     storage = compress_params(params, specs, omc)
     sim = simulate.SimConfig(local_steps=1, client_lr=0.1)
     out = []

@@ -40,6 +40,7 @@ from repro.models import griffin as jgr
 from repro_torch import interop
 from repro_torch.api.session import ServeSession
 from repro_torch.configs import recurrentgemma_2b
+from repro_torch.core import prng
 from repro_torch.core.omc import OMCConfig
 from repro_torch.core.store import is_compressed
 from repro_torch.core.tree import tree_items
@@ -83,7 +84,7 @@ def test_configs_and_trees_match_reference(trees):
     # the port's init: the reference's tree and shapes, the constant Λ; its
     # storage: the same leaves compressed, with the same (s, b) shapes
     cfg = recurrentgemma_2b.smoke_config()
-    params = gr.init(torch.Generator().manual_seed(0), cfg)
+    params = gr.init(prng.PRNGKey(0), cfg)
     jshapes = jax.eval_shape(lambda k: jgr.init(k, jcfg.smoke_config()), jax.random.PRNGKey(0))
     assert {p: tuple(v.shape) for p, v in tree_items(params)} == {
         tuple(k.key for k in p): tuple(v.shape)
