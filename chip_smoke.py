@@ -106,6 +106,28 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
      trees within the gate of phase 7; then ``omc.compress``
      (``compress_tree``) in five of the tables' formats and policies, PVT
      on and off: the same codes on the card as on the CPU.
+ 11. The training driver at full width: ``repro_torch.launch.train.run`` on
+     conformer_s with the reference's defaults (S1E4M14, batch 8, 48
+     frames, 16 clients, client lr 0.05, ``fedavg(1.0)``), 6 rounds with a
+     checkpoint every 3 into ``build/train_driver/``; then a second ``run``
+     resuming from a copy of ``ckpt_3`` to round 6, which must end in the
+     same bits as the uninterrupted run (state and ``ckpt_6``); then
+     ``pack_for_transport`` / ``unpack_from_transport`` of every compressed
+     leaf of the trained state, bit-identical.  Counters are zeroed around
+     each part: every round launches ``quantize_stats`` and ``dequantize``
+     exactly as often as the plain versions do in a round of the same
+     config on the CPU (``make_round_fn`` from the trained state), the
+     transport part launches ``pack`` and ``unpack`` once a leaf, and no
+     plain version runs.  Prints ms per round after the first, peak device
+     memory, ``state_bytes_report``, the checkpoint's bytes on disk against
+     f32, and ``benchmarks_torch/memory_measured.py``'s table.
+ 12. Card against CPU for the round: ``make_round_fn`` with ``fedavg(1.0)``
+     on conformer_s cut to 2 layers at full width (S1E4M14, a frame batch
+     8 x 48) and on qwen2.5-3b cut to 2 layers at full width (d 2048, vocab
+     151,936, tied head; S1E3M7, a 4 x 32 ``prng.randint`` batch), 2 rounds
+     each from one state, on the card (kernels) and on the CPU (plain
+     versions): losses within rtol 1e-4, trees within phase 7's gate; the
+     card's checkpoint restores on the CPU to the same bits.
 
 It then prints one JSON line describing each kernel and, last, the line
 ``{"ok": true, "device": {...}}``.  f32 matmuls run in full f32: TF32 is
@@ -119,6 +141,7 @@ import hashlib
 import importlib
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -128,6 +151,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.api.session import ServeSession  # noqa: E402
@@ -138,19 +162,23 @@ from repro_torch.core.formats import FloatFormat, narrow, widen  # noqa: E402
 from repro_torch.core.omc import OMCConfig  # noqa: E402
 from repro_torch.core.policy import QuantizePolicy  # noqa: E402
 from repro_torch.core.store import (bit_equal, compress_variable, decompress_tree,  # noqa: E402
-                                    is_compressed, tree_bytes_report)
+                                    is_compressed, pack_for_transport, tree_bytes_report,
+                                    trees_bit_equal, unpack_from_transport)
 from repro_torch.core.tree import tree_items, tree_map  # noqa: E402
 from repro_torch.data.synthetic import make_frame_task  # noqa: E402
 from repro_torch.federated import accounting, engine, simulate  # noqa: E402
 from repro_torch.federated.cohort import CohortPlan  # noqa: E402
-from repro_torch.federated.state import compress_params  # noqa: E402
+from repro_torch import checkpoint as ck  # noqa: E402
+from repro_torch.federated.round import make_round_fn  # noqa: E402
+from repro_torch.federated.state import compress_params, init_state  # noqa: E402
 from repro_torch.kernels import agg  # noqa: E402
 from repro_torch.kernels import bitpack as bk  # noqa: E402
 from repro_torch.kernels import dequant_matmul as dm  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import quantize as qk  # noqa: E402
-from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.models import conformer, griffin, transformer  # noqa: E402
+from repro_torch.optim import fedavg  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 F32_FLOP_PER_S = 67e12  # H100 SXM f32 rate outside the tensor cores (NVIDIA data sheet)
@@ -206,6 +234,8 @@ TABLE_SCRIPTS = ("table1_iid", "table2_adaptation", "table3_noniid", "table4_abl
 PVT_OFF_SCRIPTS = ("table4_ablation", "fig3_pvt_stability")  # rows encoding by `quantize`
 TABLE_ROUNDS = 2  # BENCH_ROUNDS of phase 9's scripts
 TABLE2_ROUNDS = 1  # the fewest at which Table 2's S1E2M3 beats before-adaptation here
+DRIVER_ROUNDS, DRIVER_CKPT_EVERY = 6, 3  # phase 11: the driver's run and its checkpoints
+DRIVER_DIR = ROOT / "build" / "train_driver"
 
 
 def require(cond: bool, msg: str) -> None:
@@ -1094,6 +1124,177 @@ def phase_tables_card_vs_cpu() -> tuple:
     return gap
 
 
+# ---------------------------------------------------------------------------
+# 11. the training driver at full width, 12. the round, card against CPU
+# ---------------------------------------------------------------------------
+
+
+def npz_equal(a: Path, b: Path) -> bool:
+    """Two checkpoints' arrays: the same names, dtypes and bytes."""
+    with np.load(a / "arrays.npz") as x, np.load(b / "arrays.npz") as y:
+        return sorted(x.files) == sorted(y.files) and all(
+            x[k].dtype == y[k].dtype and x[k].tobytes() == y[k].tobytes() for k in x.files)
+
+
+def states_bit_equal(a, b) -> bool:
+    """Two fedavg ``TrainState``s: params bit for bit, count, round and key."""
+    return (trees_bit_equal(a.params, b.params) and a.opt_state == b.opt_state
+            and a.round == b.round and a.rng == b.rng)
+
+
+def as_cuda(counts: dict) -> dict:
+    return {k.replace(".ref", ".cuda"): v for k, v in counts.items()}
+
+
+def phase_train_driver() -> dict:
+    shutil.rmtree(DRIVER_DIR, ignore_errors=True)
+    argv = ["--rounds", str(DRIVER_ROUNDS), "--ckpt-every", str(DRIVER_CKPT_EVERY), "--quiet"]
+    counts = {}
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    straight = train.run(train.parse_args(argv + ["--ckpt-dir", str(DRIVER_DIR / "straight")]))
+    counts["straight"] = ops.launch_counts()
+    require_launches(counts["straight"], "train driver", quantize_stats=None, dequantize=None)
+    require(all(math.isfinite(x) and 0 < x < 20 for x in straight["losses"]),
+            f"bad losses {straight['losses']}")
+
+    # the plain versions' launches in one round of the same config on the CPU,
+    # from the trained state (the driver's round is this make_round_fn)
+    cfg, omc = conformer_s.config(), OMCConfig.parse(straight["fmt"])
+    task = make_frame_task(d_in=cfg.d_in, n_classes=cfg.n_classes, seq_len=48, num_clients=16)
+    batch = {k: v.cpu() for k, v in task.batch(0, 0, 0, 8).items()}
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    make_round_fn(conformer, cfg, omc, fedavg(1.0), client_lr=0.05)(
+        straight["state"].to("cpu"), batch)
+    plain_s = time.perf_counter() - t0
+    want_round = as_cuda(ops.launch_counts())
+    require(set(want_round) == {"quantize_stats.cuda", "dequantize.cuda"},
+            f"plain round launches {ops.launch_counts()}")
+    require(straight["round_launches"] == [want_round] * DRIVER_ROUNDS,
+            f"driver rounds launched {straight['round_launches']}, the plain versions "
+            f"{want_round} a round")
+    n_comp = sum(is_compressed(v) for _, v in tree_items(straight["state"].params))
+    require(straight["init_launches"] == {"quantize_stats.cuda": n_comp},
+            f"init launched {straight['init_launches']} for {n_comp} compressed leaves")
+
+    # a killed run, rerun: resume from a copy of ckpt_3 and train to round 6
+    resumed_dir = DRIVER_DIR / "resumed"
+    resumed_dir.mkdir(parents=True)
+    shutil.copytree(DRIVER_DIR / "straight" / f"ckpt_{DRIVER_CKPT_EVERY}",
+                    resumed_dir / f"ckpt_{DRIVER_CKPT_EVERY}")
+    ops.reset_launch_counts()
+    resumed = train.run(train.parse_args(argv + ["--ckpt-dir", str(resumed_dir)]))
+    counts["resumed"] = ops.launch_counts()
+    require(resumed["start_round"] == DRIVER_CKPT_EVERY, f"resumed at {resumed['start_round']}")
+    require(resumed["round_launches"] == [want_round] * (DRIVER_ROUNDS - DRIVER_CKPT_EVERY),
+            f"resumed rounds launched {resumed['round_launches']}")
+    require(resumed["losses"] == straight["losses"][DRIVER_CKPT_EVERY:],
+            f"resumed losses {resumed['losses']} != {straight['losses'][DRIVER_CKPT_EVERY:]}")
+    require(states_bit_equal(straight["state"], resumed["state"]),
+            "the resumed run's state differs from the uninterrupted run's")
+    last = f"ckpt_{DRIVER_ROUNDS}"
+    require(npz_equal(DRIVER_DIR / "straight" / last, resumed_dir / last),
+            f"the resumed run's {last} differs from the uninterrupted run's")
+
+    # transport: every compressed leaf of the trained state through the wire form
+    leaves = [v for _, v in tree_items(straight["state"].params) if is_compressed(v)]
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wire_bytes = 0
+    for leaf in leaves:
+        blob = pack_for_transport(leaf)
+        wire_bytes += blob["nbytes"]
+        back = unpack_from_transport(blob)
+        require(all(bit_equal(x, y) for x, y in ((back.codes, leaf.codes), (back.s, leaf.s),
+                                                  (back.b, leaf.b))), "transport changed a leaf")
+    torch.cuda.synchronize()
+    transport_ms = (time.perf_counter() - t0) * 1e3
+    counts["transport"] = ops.launch_counts()
+    require_launches(counts["transport"], "transport", pack=len(leaves), unpack=len(leaves))
+
+    rep = straight["state_bytes"]
+    ms = straight["round_ms"][1:]  # after the first round
+    print(f"  conformer_s, {rep['num_params']:,} parameters, S1E4M14: "
+          f"{statistics.median(ms):.1f} ms per round (median of rounds 2-{DRIVER_ROUNDS}; "
+          f"all {[round(x, 1) for x in straight['round_ms']]}), peak "
+          f"{straight['max_memory_allocated'] / 1e9:.2f} GB")
+    print(f"  losses {straight['losses']}, grad norms {straight['grad_norms']}")
+    print(f"  launches per round {want_round} (the plain versions' in a round on the CPU, "
+          f"{plain_s:.1f} s), init {straight['init_launches']}")
+    print(f"  state_bytes_report {rep}")
+    print(f"  checkpoint {last}: {straight['ckpt_bytes']:,} bytes on disk, "
+          f"{straight['ckpt_bytes'] / rep['fp32_bytes']:.1%} of f32; resumed from "
+          f"ckpt_{DRIVER_CKPT_EVERY} in {sum(resumed['round_ms']):.0f} ms of rounds: the same bits")
+    print(f"  transport: {len(leaves)} leaves, {wire_bytes:,} wire bytes "
+          f"({wire_bytes / rep['fp32_bytes']:.1%} of f32), packed and unpacked in "
+          f"{transport_ms:.1f} ms, bit-identical; launches {counts['transport']}")
+    mem = importlib.import_module("benchmarks_torch.memory_measured")
+    ops.reset_launch_counts()
+    mem_rows = mem.run()
+    require_launches(ops.launch_counts(), "memory_measured", quantize_stats=None,
+                     dequantize=None)
+    total = {}
+    for c in counts.values():
+        for k, v in c.items():
+            total[k] = total.get(k, 0) + v
+    return dict(counts=total, round_ms=straight["round_ms"], losses=straight["losses"],
+                max_memory_allocated=straight["max_memory_allocated"], state_bytes=rep,
+                ckpt_bytes=straight["ckpt_bytes"], transport_ms=transport_ms,
+                memory_measured=mem_rows, per_round=want_round)
+
+
+def round_card_vs_cpu(name: str, family, cfg, fmt: str, batch: dict) -> tuple:
+    """2 rounds of ``make_round_fn`` from one state on the card and on the
+    CPU; returns (card losses, CPU losses, tree gap)."""
+    omc = OMCConfig.parse(fmt)
+    state = init_state(prng.PRNGKey(3), family, cfg, omc, fedavg(1.0), device="cuda")
+    fn = make_round_fn(family, cfg, omc, fedavg(1.0), client_lr=0.05)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        st = state.to(dev)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        ops.reset_launch_counts()
+        losses = []
+        for _ in range(2):
+            st, m = fn(st, b)
+            losses.append(m["loss"].item())
+        got = ops.launch_counts()
+        backend = "cuda" if dev == "cuda" else "ref"
+        require(got and all(k.endswith(backend) for k in got), f"{name} on {dev}: {got}")
+        out[dev] = (st, losses)
+    (card, card_losses), (host, host_losses) = out["cuda"], out["cpu"]
+    for x, y in zip(card_losses, host_losses):
+        require(math.isfinite(x) and abs(x - y) <= 1e-4 * abs(y),
+                f"{name}: card and CPU losses differ: {card_losses} {host_losses}")
+    gap = tree_gap(card.params, tree_map(lambda x: x.to("cuda"), host.params))  # decoded on the card
+    require(gap[0] <= TREE_MAX and gap[1] <= TREE_MEAN, f"{name}: card and CPU trees differ: {gap}")
+    path = ck.save_state(str(DRIVER_DIR / f"card_{name}"), 2, card)
+    restored, _ = ck.restore_state(path, state.to("cpu"))
+    require(states_bit_equal(restored, card.to("cpu")),
+            f"{name}: the card's checkpoint restored on the CPU to other bits")
+    print(f"  {name}: losses card {card_losses} / CPU {host_losses}, trees max |d| "
+          f"{gap[0]:.3g}, mean |d| {gap[1]:.3g}; the card's checkpoint restores on the CPU "
+          f"to the same bits")
+    del state, card, host, restored
+    shutil.rmtree(DRIVER_DIR / f"card_{name}")
+    return card_losses, host_losses, gap
+
+
+def phase_round_card_vs_cpu() -> dict:
+    ccfg = dataclasses.replace(TRAIN_CFG, n_layers=2)
+    task = make_frame_task(d_in=ccfg.d_in, n_classes=ccfg.n_classes, seq_len=48, num_clients=16)
+    conf = round_card_vs_cpu("conformer_s", conformer, ccfg, "S1E4M14", task.batch(0, 0, 0, 8))
+    torch.cuda.empty_cache()
+    qcfg = dataclasses.replace(CFG, n_layers=2)
+    toks = prng.randint(prng.fold_in(prng.PRNGKey(3), 1), (4, 33), 0, qcfg.vocab, "cuda")
+    qwen = round_card_vs_cpu("qwen2.5-3b", transformer, qcfg, "S1E3M7",
+                             dict(tokens=toks[:, :-1], labels=toks[:, 1:]))
+    torch.cuda.empty_cache()
+    return dict(conformer_s=conf, qwen=qwen)
+
+
 def kernel_line(kernels: dict, counts_by_path: dict) -> dict:
     primary = dict(quantize_stats=list(EMBED), dequantize=list(MLP_SLICE), pack=list(EMBED),
                    unpack=list(EMBED), quantize=[COHORT, *TRAIN_LEAF],
@@ -1138,10 +1339,13 @@ def main() -> None:
     phase_train_card_vs_cpu()
     tables = phase_tables()
     phase_tables_card_vs_cpu()
+    driver = phase_train_driver()
+    phase_round_card_vs_cpu()
     print(json.dumps(kernel_line(kernels, dict(serve=served["report"]["launch_counts"],
                                                serve_griffin=served_g["report"]["launch_counts"],
                                                train=trained["counts"],
-                                               tables=tables["counts"]))))
+                                               tables=tables["counts"],
+                                               train_driver=driver["counts"]))))
     print(json.dumps(dict(ok=True, device=dict(platform="gpu", kind=torch.cuda.get_device_name(0),
                                                count=torch.cuda.device_count()))))
 

@@ -33,9 +33,19 @@ The encoder picks ``delta`` per leaf only when it is smaller than ``full``.
 
 Packing runs where the codes live: on the card for CUDA trees (the ``pack``
 and ``unpack`` kernels), with the plain versions for CPU trees; framing,
-JSON and crc32 stay on the host.  The compression-strategy zoo's leaf kinds
-(``topk``, ``ternary``, ``pipeline``) and strategy-tagged frames are not
-ported yet and raise :class:`CodecError`.
+JSON and crc32 stay on the host.
+
+Strategy leaves: :func:`register_leaf_codec` registers a leaf kind beyond
+the built-in ``omc`` and ``raw``, as the reference's does, and
+:func:`decode_payload`, :func:`tree_digest` and :func:`payload_bytes_report`
+consult the registry.  The compression-strategy zoo that registers the
+reference's kinds (``topk``, ``ternary``, ``pipeline``) and tags its frames
+is not ported yet (ROADMAP A7): a strategy-tagged frame, or a tree holding a
+registered kind (whose frame the reference tags), raises :class:`CodecError`.
+
+Byte accounting: for a full payload the body is exactly
+``packed_bytes(n, fmt) + 8·s.size`` per compressed leaf plus ``itemsize·n``
+per raw leaf (:func:`payload_bytes_report` computes it without serializing).
 """
 
 from __future__ import annotations
@@ -45,7 +55,7 @@ import json
 import math
 import struct
 import zlib
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -62,10 +72,38 @@ FLAG_DELTA = 1 << 0
 
 # magic, version, flags, round, manifest len, body len, crc, base digest
 _HEADER = struct.Struct("<4sHHIIQII")
+_PVT_BYTES_PER_ENTRY = 8  # s and b, f32 each
 
 
 class CodecError(ValueError):
     """Malformed, corrupt, version-incompatible or not-yet-ported payload."""
+
+
+# ---------------------------------------------------------------------------
+# strategy leaf-codec registry
+# ---------------------------------------------------------------------------
+
+_LEAF_CODECS: Dict[str, Tuple[type, Any, Any]] = {}
+
+
+def register_leaf_codec(kind: str, leaf_type: type, encode_fn, decode_fn) -> None:
+    """Register a strategy leaf kind: ``encode_fn(leaf, base) -> (meta,
+    [chunks])`` and ``decode_fn(meta, body, off, base) -> (leaf, off)``.
+    The body section must measure exactly ``leaf.wire_body_bytes()`` bytes,
+    so that every ledger reconciles."""
+    if kind in ("omc", "raw"):
+        raise ValueError(f"leaf kind {kind!r} is built in")
+    prev = _LEAF_CODECS.get(kind)
+    if prev is not None and prev[0] is not leaf_type:
+        raise ValueError(f"leaf kind {kind!r} already registered")
+    _LEAF_CODECS[kind] = (leaf_type, encode_fn, decode_fn)
+
+
+def _leaf_kind(leaf) -> Optional[str]:
+    for kind, (leaf_type, _, _) in _LEAF_CODECS.items():
+        if isinstance(leaf, leaf_type):
+            return kind
+    return None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,6 +124,15 @@ class PayloadInfo:
     @property
     def is_delta(self) -> bool:
         return bool(self.flags & FLAG_DELTA)
+
+
+def negotiate_version(peer_versions: Sequence[int]) -> int:
+    """Highest wire version both ends speak (the server calls this per client)."""
+    common = set(SUPPORTED_VERSIONS) & {int(v) for v in peer_versions}
+    if not common:
+        raise CodecError(f"no common wire version: we speak {SUPPORTED_VERSIONS}, "
+                         f"peer speaks {tuple(peer_versions)}")
+    return max(common)
 
 
 # ---------------------------------------------------------------------------
@@ -184,7 +231,13 @@ def tree_digest(tree) -> int:
     h = 0
     for parts, leaf in _flatten(tree):
         h = zlib.crc32(_path_key(parts).encode(), h)
-        if is_compressed(leaf):
+        kind = _leaf_kind(leaf)
+        if kind is not None:  # strategy leaves: the canonical wire chunks
+            meta, chunks = _LEAF_CODECS[kind][1](leaf, None)
+            h = zlib.crc32(json.dumps(meta, separators=(",", ":"), sort_keys=True).encode(), h)
+            for c in chunks:
+                h = zlib.crc32(c, h)
+        elif is_compressed(leaf):
             h = zlib.crc32(_host(leaf.codes).tobytes(), h)
             h = zlib.crc32(_f32_bytes(leaf.s), h)
             h = zlib.crc32(_f32_bytes(leaf.b), h)
@@ -340,8 +393,8 @@ def encode_payload(tree, *, base=None, round_index: int = 0) -> bytes:
         elif isinstance(leaf, torch.Tensor):
             meta, ch = _encode_raw(leaf, bleaf)
         else:
-            raise CodecError(f"leaf of type {type(leaf).__name__} at "
-                             f"{_path_key(parts)!r}: strategy leaf kinds are not yet ported")
+            raise CodecError(f"leaf of type {type(leaf).__name__} at {_path_key(parts)!r}: "
+                             f"strategy-tagged frames are not yet ported (ROADMAP A7)")
         any_delta |= meta["mode"] == "delta"
         meta["path"] = parts
         manifest.append(meta)
@@ -380,7 +433,7 @@ def _parse_frame(data: bytes) -> Tuple[PayloadInfo, Dict[str, Any], memoryview]:
         raise CodecError(f"malformed manifest: {e}") from e
     if manifest.get("strategy") is not None:
         raise CodecError(f"strategy-tagged payload ({manifest['strategy']!r}): the "
-                         f"compression-strategy zoo is not yet ported")
+                         f"compression-strategy zoo is not yet ported (ROADMAP A7)")
     info = PayloadInfo(
         version=ver,
         flags=flags,
@@ -423,9 +476,71 @@ def decode_payload(data: bytes, *, base=None, device="cuda") -> Tuple[Any, Paylo
             leaf, off = _decode_omc(meta, body, off, bleaf, device)
         elif meta["kind"] == "raw":
             leaf, off = _decode_raw(meta, body, off, bleaf, device)
+        elif meta["kind"] in _LEAF_CODECS:
+            leaf, off = _LEAF_CODECS[meta["kind"]][2](meta, body, off, bleaf)
         else:
-            raise CodecError(f"leaf kind {meta['kind']!r} is not yet ported")
+            raise CodecError(f"unknown leaf kind {meta['kind']!r}")
         entries.append((parts, leaf))
     if off != info.body_bytes:
         raise CodecError(f"body length mismatch: consumed {off}, have {info.body_bytes}")
     return _unflatten(entries), info
+
+
+def peek_payload(data: bytes) -> PayloadInfo:
+    """Validate framing + checksum and return sizes, without decoding."""
+    return _parse_frame(data)[0]
+
+
+def header_base_digest(data: bytes) -> int:
+    """Base digest straight from the header, with no checksum scan: for cheap
+    delta-vs-full routing; integrity is still enforced at decode."""
+    if len(data) < _HEADER.size:
+        raise CodecError(f"payload truncated: {len(data)} bytes")
+    magic, _, flags, _, _, _, _, digest = _HEADER.unpack_from(data)
+    if magic != MAGIC:
+        raise CodecError(f"bad magic {magic!r}")
+    return digest if flags & FLAG_DELTA else 0
+
+
+def payload_bytes_report(tree) -> Dict[str, Any]:
+    """Theoretical full-payload body size for a storage tree, the
+    reference's report key for key: ``packed_bytes`` plus 8 bytes of PVT
+    scalars per entry for ``omc`` leaves, a strategy leaf's
+    ``wire_body_bytes`` otherwise, ``itemsize·n`` for raw leaves; so
+    ``wire_bytes`` equals ``state_bytes_report``'s ``packed_bytes`` for a
+    pure OMC tree, and a full payload's ``body_bytes``.  ``per_strategy``
+    breaks the body down by leaf kind.  Only shapes are read."""
+    wire = fp32 = n_params = n_comp = 0
+    per: Dict[str, Dict[str, int]] = {}
+
+    def bucket(kind: str) -> Dict[str, int]:
+        return per.setdefault(kind, dict(payload_bytes=0, index_bytes=0, meta_bytes=0,
+                                         num_leaves=0, num_params=0))
+
+    for _, leaf in _flatten(tree):
+        if is_compressed(leaf):
+            n = leaf.size
+            meta = _PVT_BYTES_PER_ENTRY * leaf.s.numel()
+            body = packing.packed_bytes(n, leaf.fmt) + meta
+            n_comp += n
+            b = bucket("omc")
+            b["meta_bytes"] += meta
+        elif (kind := _leaf_kind(leaf)) is not None:
+            n = math.prod(leaf.shape)
+            body = int(leaf.wire_body_bytes())
+            n_comp += n
+            b = bucket(kind)
+            b["index_bytes"] += int(leaf.index_bytes())
+            b["meta_bytes"] += int(leaf.meta_bytes())
+        else:
+            n = leaf.numel()
+            body = n * leaf.element_size()
+            b = bucket("raw")
+        n_params += n
+        fp32 += 4 * n
+        wire += body
+        b["payload_bytes"] += body
+        b["num_leaves"] += 1
+        b["num_params"] += n
+    return dict(num_params=n_params, num_compressed=n_comp, fp32_bytes=fp32, wire_bytes=wire,
+                wire_ratio=wire / max(fp32, 1), per_strategy=per)

@@ -1,0 +1,24 @@
+"""Atomic checkpoints of federated server state (port of ``repro.checkpoint``).
+
+Sync state goes through :func:`save_state` / :func:`restore_state`, in the
+reference's layout (each package restores the other's); the async runtime's
+and the sharded population's snapshots raise ``NotImplementedError`` until
+their modules are ported (ROADMAP A8, A9).
+"""
+
+from .ckpt import (
+    gc_checkpoints,
+    latest_checkpoint,
+    restore_async_state,
+    restore_population_state,
+    restore_state,
+    save_async_state,
+    save_population_state,
+    save_state,
+)
+
+__all__ = [
+    "save_state", "restore_state", "latest_checkpoint", "gc_checkpoints",
+    "save_async_state", "restore_async_state",
+    "save_population_state", "restore_population_state",
+]

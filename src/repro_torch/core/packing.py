@@ -60,3 +60,9 @@ def unpack(words: torch.Tensor, width: int, n: int,
 def packed_bytes(n: int, fmt: FloatFormat) -> int:
     """Exact wire bytes for ``n`` values of ``fmt`` (uint32-word granularity)."""
     return 4 * packed_words(n, fmt.bits)
+
+
+def packed_bytes_width(n: int, width: int) -> int:
+    """Exact wire bytes for ``n`` values of an arbitrary bit width (e.g. the
+    2-bit ternary codes of the reference's ``compress.ternary``)."""
+    return 4 * packed_words(n, width)

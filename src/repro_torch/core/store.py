@@ -7,6 +7,8 @@ single variable, ``[L, 1, ...]`` for a stack of L independent entries.
 ``compress_tree`` is the storage-mode compression of a whole tree under a
 policy; ``tree_bytes_report`` the byte accounting behind the paper's
 "parameter memory / communication" columns.
+``pack_for_transport`` / ``unpack_from_transport`` are one variable's exact
+wire form, through the ``pack`` / ``unpack`` kernels for CUDA tensors.
 """
 
 from __future__ import annotations
@@ -46,6 +48,13 @@ class CompressedVariable:
         if self.s.ndim == 0:
             raise IndexError("a single (unstacked) variable has no entry axis")
         return CompressedVariable(self.codes[index], self.s[index], self.b[index], self.fmt)
+
+    def unbind(self, dim: int = 0):
+        """The entries of the stacked leading axis, as ``tensor.unbind(0)``
+        gives a tensor's (views of codes, s and b; ``dim`` must be 0)."""
+        if dim != 0:
+            raise ValueError("a CompressedVariable unbinds only its leading axis")
+        return [self[i] for i in range(self.codes.shape[0])]
 
     def rows(self, index: torch.Tensor) -> "CompressedVariable":
         """Gather rows of a single variable; decode and affine are elementwise
@@ -172,6 +181,25 @@ def tree_bytes_report(params, fmt: FloatFormat, policy: QuantizePolicy, *,
         packed_ratio=(packed_ppq + overhead) / max(fp32, 1),
         avg_bits_packed=8 * (packed_ppq + overhead) / max(n_tot, 1),
     )
+
+
+def pack_for_transport(cv: CompressedVariable) -> Dict[str, Any]:
+    """Exact wire encoding of one compressed variable (uint32 bitstream),
+    the reference's dict key for key; ``nbytes`` charges 8 bytes of (s, b)
+    whatever their shape, as the reference does.  Bit offsets are 64-bit
+    (``core.packing``), so a stacked leaf of more than 2**32 bits packs
+    whole."""
+    words = packing.pack(cv.codes, cv.fmt.bits)
+    return dict(words=words, s=cv.s, b=cv.b, fmt=cv.fmt.name, shape=tuple(cv.codes.shape),
+                nbytes=words.numel() * 4 + _PVT_OVERHEAD_BYTES)
+
+
+def unpack_from_transport(blob: Dict[str, Any]) -> CompressedVariable:
+    """Inverse of :func:`pack_for_transport`: codes in the format's container."""
+    fmt = FloatFormat.parse(blob["fmt"])
+    shape = tuple(blob["shape"])
+    codes = packing.unpack(blob["words"], fmt.bits, math.prod(shape), fmt.container_dtype)
+    return CompressedVariable(codes.reshape(shape), blob["s"], blob["b"], fmt)
 
 
 def bit_equal(a: torch.Tensor, b: torch.Tensor) -> bool:

@@ -1,26 +1,38 @@
-"""OMC materialization for serving (port of ``repro.federated.materialize``).
+"""OMC materialization for serving and training (port of
+``repro.federated.materialize``).
 
 The storage tree keeps policy-selected variables as ``CompressedVariable``
 (uint bitfield codes + PVT scalars).  Per layer, the materializer hands the
 model its weights:
 
-  * a compressed 2-D leaf that the layer uses as a matmul operand (a key the
-    model names in ``operands``) stays in code form, one entry with its own
-    ``(s, b)``: ``models.common.linear`` streams its codes through the
-    ``dequant_matmul`` kernel, so the f32 weight never exists in device
-    memory (DESIGN.md §2);
-  * every other compressed leaf (one used elementwise, such as griffin's
-    ``conv_w``, the embedding rows, a tied head) is decoded and
-    PVT-corrected on the fly, one ``dequantize`` launch per leaf on CUDA,
-    into a transient f32 tensor dropped after use (the paper's
-    decompress-on-the-fly, Fig. 1);
-  * a raw leaf passes through as f32.
+  * serving: a compressed 2-D leaf that the layer uses as a matmul operand
+    (a key the model names in ``operands``) stays in code form, one entry
+    with its own ``(s, b)``: ``models.common.linear`` streams its codes
+    through the ``dequant_matmul`` kernel, so the f32 weight never exists in
+    device memory (DESIGN.md §2);
+  * every other compressed leaf is decoded and PVT-corrected on the fly,
+    one ``dequantize`` launch per leaf on CUDA, into a transient f32 tensor
+    dropped after use (the paper's decompress-on-the-fly, Fig. 1);
+  * a raw leaf passes through as f32;
+  * training: a :class:`QParam` pairs a storage leaf with its f32 zero
+    "gradient sink".  It always comes back decoded (never in code form:
+    ``dequant_matmul`` has no backward) and grafted onto its sink,
+    ``w = decoded + sink``, whose value is the decoded weight (the sink is
+    zeros) and whose gradient lands in the sink: ``autograd.grad(loss,
+    sinks)`` is d loss / d W_effective, the client delta, and no gradient
+    reaches the integer codes.  The decoded leaf needs no gradient of its
+    own, so no ``autograd.Function`` is needed.
 
-Inference mode only: the reference's gradient sinks (``QParam``) belong to
-the training slice.
+Under ``models.common.scan_blocks`` a stacked ``QParam`` is unbound one
+layer at a time (codes, ``(s, b)`` and sink together) and materialized
+inside that layer's ``checkpoint``, so the backward pass decodes the layer
+again, as the reference's remat does.
 """
 
 from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
 
 import torch
 
@@ -29,9 +41,53 @@ from repro_torch.core.tree import tree_map
 from repro_torch.models.common import Materializer
 
 
+@dataclasses.dataclass
+class QParam:
+    """Storage-form parameter paired with its gradient sink.
+
+    value: CompressedVariable (selected variables) or f32 tensor (the rest).
+    sink:  f32 zeros of the decoded shape that require grad; None in
+           inference mode (no gradient wanted).
+    """
+
+    value: Any
+    sink: Optional[torch.Tensor] = None
+
+    def unbind(self, dim: int = 0):
+        """The layers of a stacked leaf, value and sink sliced together."""
+        sinks = self.sink.unbind(dim) if self.sink is not None else None
+        return [QParam(v, None if sinks is None else sinks[i])
+                for i, v in enumerate(self.value.unbind(dim))]
+
+    def rows(self, index: torch.Tensor) -> "QParam":
+        """Rows of a single (embedding) variable and of its sink: decoding
+        them equals the rows of the decoded table, bit for bit, and their
+        gradient lands in the sink's rows."""
+        v = self.value.rows(index) if is_compressed(self.value) else self.value[index]
+        return QParam(v, None if self.sink is None else self.sink[index])
+
+
+def make_sinks(params):
+    """f32 zero tree shaped like the decoded params, each leaf requiring grad."""
+
+    def zero(leaf):
+        shape = leaf.codes.shape if is_compressed(leaf) else leaf.shape
+        return torch.zeros(shape, dtype=torch.float32, device=leaf.device, requires_grad=True)
+
+    return tree_map(zero, params)
+
+
+def pack_qparams(params, sinks=None):
+    """Zip storage params with sinks into a QParam tree (the model's input)."""
+    if sinks is None:
+        return tree_map(lambda v: QParam(v, None), params)
+    return tree_map(QParam, params, sinks)
+
+
 class OMCMaterializer(Materializer):
-    """Materializer that decodes ``CompressedVariable`` leaves, but for the
-    2-D matmul operands named in ``operands``, which stay in code form."""
+    """Materializer that decodes ``CompressedVariable`` and ``QParam`` leaves,
+    but for the compressed 2-D matmul operands named in ``operands``, which
+    stay in code form (serving only)."""
 
     def __call__(self, subtree, operands=()):
         if not operands:
@@ -40,6 +96,9 @@ class OMCMaterializer(Materializer):
                 else tree_map(self.leaf, v) for k, v in subtree.items()}
 
     def leaf(self, x):
+        if isinstance(x, QParam):
+            w = self.leaf(x.value).detach()
+            return w if x.sink is None else w + x.sink
         if is_compressed(x):
             return x.dequantize()
         return x.to(torch.float32)

@@ -1,25 +1,49 @@
-"""Compressed-at-rest server parameters (port of ``repro.federated.state``).
+"""Server training state: compressed-at-rest parameters + optimizer state
+(port of ``repro.federated.state``).
 
-``compress_params`` applies the OMC policy to an f32 parameter tree:
-selected variables become ``CompressedVariable`` (the paper's storage model —
-no persistent f32 master).  The number of PVT batch axes per leaf (stacked
-layers) comes from the ParamSpec: stacked axes are exactly the leading axes
-the spec does not describe.  ``TrainState``/``init_state`` serve
-``federated/round.py``'s training round, not ported yet (ROADMAP).
+``init_state`` applies the OMC policy to a freshly initialized f32 parameter
+tree (``compress_params``): selected variables become ``CompressedVariable``
+(the paper's storage model — no persistent f32 master exists between
+rounds; the decoded values are transient).  The number of PVT batch axes per
+leaf (stacked layers) comes from the ParamSpec: stacked axes are exactly the
+leading axes the spec does not describe.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict
 
 import torch
 
-from repro_torch.core import packing
+from repro_torch.core import packing, prng
 from repro_torch.core.omc import OMCConfig
 from repro_torch.core.policy import path_str
 from repro_torch.core.store import compress_variable, is_compressed
-from repro_torch.core.tree import tree_items, tree_map_with_path
+from repro_torch.core.tree import tree_items, tree_map, tree_map_with_path
 from repro_torch.models.common import ParamSpec
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The reference's fields in its order (a checkpoint's leaf order)."""
+
+    params: Any  # tree: CompressedVariable | f32 leaves
+    opt_state: Any
+    round: int
+    rng: prng.Key
+
+    def to(self, device) -> "TrainState":
+        """A copy with every tensor (codes, (s, b), moments) on ``device``."""
+
+        def move(x):
+            if isinstance(x, dict):
+                return {k: move(v) for k, v in x.items()}
+            if isinstance(x, tuple) and hasattr(x, "_fields"):  # an optimizer state
+                return type(x)(*map(move, x))
+            return x.to(device) if hasattr(x, "to") else x
+
+        return TrainState(move(self.params), move(self.opt_state), self.round, self.rng)
 
 
 def n_stack_axes(spec: ParamSpec, leaf) -> int:
@@ -56,6 +80,21 @@ def compress_params(params, specs, omc: OMCConfig):
         return leaf
 
     return tree_map_with_path(f, specs, params)
+
+
+def init_state(key: prng.Key, family, cfg, omc: OMCConfig, server_opt,
+               device="cuda") -> TrainState:
+    """Initialize params (f32, on ``device``), compress per policy, set up
+    the server optimizer over zeros shaped like the codes, as the reference
+    does."""
+    params = family.init(key, cfg, device)
+    storage = compress_params(params, family.param_specs(cfg), omc) if omc.enabled else params
+    del params
+    opt_state = server_opt.init(tree_map(
+        lambda v: torch.zeros(v.codes.shape, dtype=torch.float32, device=v.device)
+        if is_compressed(v) else v, storage))
+    return TrainState(params=storage, opt_state=opt_state, round=0,
+                      rng=prng.fold_in(key, 0xF3D))
 
 
 def state_bytes_report(params) -> Dict[str, Any]:

@@ -134,9 +134,10 @@ def stack_entry(tree, i: int):
 
 def embed_lookup(table, tokens: torch.Tensor, mat: Materializer) -> torch.Tensor:
     """Token rows of the embedding; a compressed table decodes only those rows
-    (one ``dequantize`` launch), bit for bit the rows of the decoded table."""
+    (one ``dequantize`` launch), bit for bit the rows of the decoded table
+    (a training ``QParam`` takes its sink's rows with them)."""
     flat = tokens.reshape(-1)
-    rows = table.rows(flat) if is_compressed(table) else table[flat]
+    rows = table[flat] if isinstance(table, torch.Tensor) else table.rows(flat)
     return mat.leaf(rows).reshape(tokens.shape + (-1,))
 
 
@@ -211,9 +212,13 @@ def scan_blocks(block_fn: Callable, stacked_params, x: torch.Tensor,
     pass but recomputed there — the reference's remat around each scan step.
     The stacked leaves are unbound once: their gradient is then one stack
     of the per-layer gradients, not a full-size zero-filled tensor per layer.
+    A leaf is a tensor or anything else with ``unbind`` (a
+    ``CompressedVariable``, the training materializer's ``QParam``), so that
+    a layer's codes are decoded inside its ``checkpoint`` and again in the
+    recompute.
     """
-    n = next(tree_items(stacked_params))[1].shape[0]
     slices = tree_map(lambda a: a.unbind(0), stacked_params)
+    n = len(next(tree_items(slices))[1])
 
     def body(carry, i):
         return block_fn(carry, mat(tree_map(lambda a: a[i], slices)))

@@ -2,8 +2,9 @@
 
 A family module exposes ``init`` and ``param_specs``; a servable one also
 ``prefill``, ``decode_step`` and ``init_decode_state``, a trainable one
-``loss``.  The dense transformer and griffin (serve) and the conformer
-(train) are ported; the other families are queued in ROADMAP.md (queue A10).
+``loss``.  The dense transformer (serve and train), griffin (serve) and the
+conformer (train) are ported; the other families are queued in ROADMAP.md
+(queue A10).
 """
 
 from __future__ import annotations

@@ -1,15 +1,21 @@
 """Dense decoder-only transformer LM with GQA (port of ``repro.models.transformer``).
 
-Serving only: ``prefill`` and ``decode_step`` against a KV cache, over any
-parameter tree a :class:`~repro_torch.models.common.Materializer` turns into
-compute weights (the identity for f32 params, ``OMCMaterializer`` for OMC
-storage).  Training (``loss``/``forward``) waits for the training slice.
+Training (``forward``/``loss``: the token stream through ``scan_blocks``,
+each layer decoded inside its ``checkpoint``, and the chunked cross-entropy
+against the head) and serving (``prefill`` and ``decode_step`` against a KV
+cache), over any parameter tree a
+:class:`~repro_torch.models.common.Materializer` turns into compute weights
+(the identity for f32 params, ``OMCMaterializer`` for OMC storage and for
+the training round's ``QParam`` tree).  Only the token path of the
+reference's ``_input_embeds`` is ported: a modality prefix
+(``prefix_embeds``, ``batch["patches"]``) waits for its families (ROADMAP
+A10).
 
-The stacked block parameters are consumed by a Python loop over layers.  The
-seven block matrices of a layer (``OPERANDS``) go through ``common.linear``:
-over OMC storage each streams its codes through the ``dequant_matmul``
-kernel.  The tied head stays ``x @ dec(E).T``, a decode and a matmul, as the
-reference computes it.
+When serving, the stacked block parameters are consumed by a Python loop
+over layers.  The seven block matrices of a layer (``OPERANDS``) go through
+``common.linear``: over OMC storage each streams its codes through the
+``dequant_matmul`` kernel.  The tied head stays ``x @ dec(E).T``, a decode
+and a matmul, as the reference computes it.
 """
 
 from __future__ import annotations
@@ -33,6 +39,8 @@ from .common import (
     init_layers,
     linear,
     rms_norm,
+    scan_blocks,
+    softmax_xent_chunked,
     stack_entry,
     swiglu,
     wspec,
@@ -138,6 +146,44 @@ def param_specs(cfg: TransformerConfig) -> Dict[str, Any]:
     if not cfg.tie_embeddings:
         specs["lm_head"] = wspec("fsdp", "tensor")
     return specs
+
+
+# ---------------------------------------------------------------------------
+# training: forward and loss
+# ---------------------------------------------------------------------------
+
+
+def _block_apply(cfg: TransformerConfig, w, x, positions):
+    """One decoder block (pre-norm GQA attention + SwiGLU MLP)."""
+    b, s, _ = x.shape
+    h = rms_norm(x, w["attn_norm"], cfg.norm_eps)
+    q, k, v = _qkv(w, h, cfg)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    o = attn.attend(q, k, v, positions, positions, causal=True, window=cfg.window)
+    x = x + linear(o.reshape(b, s, cfg.q_dim), w["wo"])
+    h = rms_norm(x, w["mlp_norm"], cfg.norm_eps)
+    return x + swiglu(h, w["w1"], w["w3"], w["w2"])
+
+
+def forward(cfg: TransformerConfig, params, batch, mat: Materializer) -> torch.Tensor:
+    """Token stream -> final hidden states [B, S, D] (pre-head)."""
+    if "patches" in batch:
+        raise NotImplementedError("modality-prefix embeddings are not ported yet (ROADMAP A10)")
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    x = embed_lookup(params["embed"], tokens, mat)
+    positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
+    x = scan_blocks(lambda carry, w: _block_apply(cfg, w, carry, positions),
+                    params["blocks"], x, mat)
+    return rms_norm(x, mat.leaf(params["final_norm"]), cfg.norm_eps)
+
+
+def loss(cfg: TransformerConfig, params, batch, mat: Materializer) -> torch.Tensor:
+    """Mean next-token cross-entropy (over ``batch["mask"]`` where given)."""
+    hidden = forward(cfg, params, batch, mat)
+    return softmax_xent_chunked(hidden, _head_weight(cfg, params, mat), batch["labels"],
+                                batch.get("mask"))
 
 
 # ---------------------------------------------------------------------------

@@ -17,7 +17,7 @@ import torch
 
 import repro_torch
 from repro_torch.configs.registry import get_arch
-from repro_torch.launch import serve
+from repro_torch.launch import serve, train
 from repro_torch.models.registry import get_family
 
 torch.set_num_threads(1)
@@ -73,6 +73,14 @@ def test_griffin_serve_without_a_card_raises_instead_of_using_the_cpu(monkeypatc
     assert get_family(get_arch("recurrentgemma-2b").FAMILY).__name__ == "repro_torch.models.griffin"
     with pytest.raises(RuntimeError, match="--device cpu"):
         serve.run(serve.parse_args(["--smoke", "--arch", "recurrentgemma-2b"]))
+
+
+def test_train_without_a_card_raises_instead_of_using_the_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        train.run(train.parse_args(["--smoke", "--rounds", "1"]))
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        train.run(train.parse_args([]))  # the full-width default, conformer_s
 
 
 def test_unported_archs_and_families_name_the_roadmap():
