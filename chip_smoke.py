@@ -29,7 +29,10 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
      vectors and scalars, with a NaN code in a live row too: the variant the
      one ``kernel_variant`` states, and codes and sums the same bits from
      two launches with a launch on all-NaN client codes between them; its
-     bound counts the live client planes (a dead client's is never read).  ``dequant_matmul``
+     bound counts the live client planes (a dead client's is never read);
+     and at [17, 512, 2048] with an async flush's K = 8 staleness weights
+     (poly decay 0.5, fractional; decay 200, underflowed to exactly 0 for the
+     stale entries), bit-exact as with 0/1 weights.  ``dequant_matmul``
      at the serve paths' products in S1E3M7 (decode [4, 2048]x[2048, 11008],
      [4, 11008]x[11008, 2048], [4, 2048]x[2048, 256], [4, 2560]x[2560, 7680];
      prefill [128, 2048]x[2048, 11008], and the prefill products whose tile
@@ -123,13 +126,45 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
      f32, and ``benchmarks_torch/memory_measured.py``'s table.
  12. Card against CPU for the round: ``make_round_fn`` with ``fedavg(1.0)``
      on conformer_s cut to 2 layers at full width (S1E4M14, a frame batch
-     8 x 48) and on qwen2.5-3b cut to 2 layers at full width (d 2048, vocab
-     151,936, tied head; S1E3M7, a 4 x 32 ``prng.randint`` batch), 2 rounds
-     each from one state, on the card (kernels) and on the CPU (plain
-     versions): losses within rtol 1e-4, trees within phase 7's gate; the
-     card's checkpoint restores on the CPU to the same bits.
+     8 x 48; 2 rounds) and on qwen2.5-3b cut to 2 layers at full width (d
+     2048, vocab 151,936, tied head; S1E3M7, a 4 x 32 ``prng.randint``
+     batch; 1 round, cut from 2 to keep the script under 900 s: its CPU
+     side is the script's largest cost), from one state each, on the card
+     (kernels) and on the CPU (plain versions): losses within rtol 1e-4,
+     trees within phase 7's gate; the card's checkpoint restores on the CPU
+     to the same bits.
+ 13. The async runtime at full width (``federated.async_engine.AsyncRunner``),
+     under ``torch.use_deterministic_algorithms(True)``: phase 7's model,
+     task and format, 1 local step at lr 0.1.  A degenerate trace (8
+     clients, ``buffer_goal`` 8, ``FixedTrace``, decay 0, 2 flushes) against
+     2 rounds of the engine at cohort 8 of 8: ledgers equal the engine's
+     summed, trees within phase 7's gate.  A straggler run (32 clients,
+     ``buffer_goal`` 8, ``ParetoTrace(alpha=1.5)``, poly decay 0.5,
+     ``max_staleness`` 4, 3 flushes), fused and unfused from one seed: the
+     same history rows but the loss (buffer, staleness, clock, ledger),
+     losses within 1e-3, trees within the reference's async gate (4 S1E3M7
+     steps max and 1 mean at each leaf's scale).  The fused run saves
+     ``save_async_state`` mid-buffer into ``build/async/``, after its second
+     flush with uploads buffered and a trained cache; a fresh runner restores
+     it and runs to flush 3: storage, history and ledger the same bits.
+     Counters are zeroed around each part: B1 and B2 launch exactly as often
+     as the plain versions do in the same runs on the CPU (repeated at the
+     smoke config with 8-frame batches: the schedule and the 13 compressed
+     leaves do not depend on depth, width or batch), B5 once a compressed
+     leaf a fused flush, the resumed run exactly what the straight run
+     launched after the save; no plain version.  Prints ms per flush, peak
+     device memory, completed updates per virtual second, ``stale_fraction``
+     and ``dropped_fraction``, the checkpoint's bytes and its save and
+     restore times.
+ 14. Card against CPU for the async runtime: the straggler run cut to 2
+     layers at full width, 16 clients, ``buffer_goal`` 4, 2 fused flushes,
+     on the card (kernels) and on the CPU (plain versions): the same
+     history rows but the loss, losses within 1e-3, the same launches, trees
+     within phase 7's gate.
 
-It then prints one JSON line describing each kernel and, last, the line
+Each phase's wall seconds are printed on a line of their own.  It then
+prints one JSON line describing each kernel (``launches_by_path`` has the
+main paths of phases 3, 5, 7, 9, 11 and 13) and, last, the line
 ``{"ok": true, "device": {...}}``.  f32 matmuls run in full f32: TF32 is
 switched off for matmuls and cuDNN.  Exits non-zero without a CUDA device.
 """
@@ -141,6 +176,7 @@ import hashlib
 import importlib
 import json
 import math
+import os
 import shutil
 import statistics
 import subprocess
@@ -166,7 +202,8 @@ from repro_torch.core.store import (bit_equal, compress_variable, decompress_tre
                                     trees_bit_equal, unpack_from_transport)
 from repro_torch.core.tree import tree_items, tree_map  # noqa: E402
 from repro_torch.data.synthetic import make_frame_task  # noqa: E402
-from repro_torch.federated import accounting, engine, simulate  # noqa: E402
+from repro_torch.federated import accounting, async_engine, engine, simulate  # noqa: E402
+from repro_torch.federated import traces  # noqa: E402
 from repro_torch.federated.cohort import CohortPlan  # noqa: E402
 from repro_torch import checkpoint as ck  # noqa: E402
 from repro_torch.federated.round import make_round_fn  # noqa: E402
@@ -236,6 +273,10 @@ TABLE_ROUNDS = 2  # BENCH_ROUNDS of phase 9's scripts
 TABLE2_ROUNDS = 1  # the fewest at which Table 2's S1E2M3 beats before-adaptation here
 DRIVER_ROUNDS, DRIVER_CKPT_EVERY = 6, 3  # phase 11: the driver's run and its checkpoints
 DRIVER_DIR = ROOT / "build" / "train_driver"
+ASYNC_DIR = ROOT / "build" / "async"  # phase 13's mid-buffer checkpoint
+ASYNC_SIM = simulate.SimConfig(local_steps=1, client_lr=0.1)
+ASYNC_FLUSHES = 3  # phase 13's straggler run
+ASYNC_STALENESS = np.asarray([0, 0, 1, 1, 2, 3, 5, 8], np.float32)  # phase 2's K = 8 buffer
 
 
 def require(cond: bool, msg: str) -> None:
@@ -458,13 +499,15 @@ def check_quantize(x, fmt, want_codes, timer=None):
 
 
 def check_fused_aggregate(shape, batch_axes, fmt, timer=None, dead=(1, 6), cohort=COHORT,
-                          live_nan=False):
+                          live_nan=False, weights=None):
     """``fused_aggregate`` against its plain version: server and client codes
     from random weights, per-entry (s, b), dead clients holding a NaN code
-    (with ``live_nan``, one element of live client 0 NaN too).  Codes
-    bit-exact, sums within rtol=1e-4 (NaN where the plain version's are);
-    the kernel's variant the one ``kernel_variant`` states; the same bits
-    from a second launch, after one on all-NaN client codes."""
+    (with ``live_nan``, one element of live client 0 NaN too), or with
+    ``weights`` (an async flush's staleness weights) those client weights
+    and no dead client.  Codes bit-exact, sums within rtol=1e-4 (NaN where
+    the plain version's are); the kernel's variant the one
+    ``kernel_variant`` states; the same bits from a second launch, after one
+    on all-NaN client codes."""
     g = torch.Generator(device="cuda").manual_seed(sum(shape) + batch_axes + cohort)
     lead = tuple(shape[:batch_axes])
     srv = qk.quantize(torch.randn(shape, generator=g, device="cuda") * 0.05, fmt)
@@ -472,6 +515,8 @@ def check_fused_aggregate(shape, batch_axes, fmt, timer=None, dead=(1, 6), cohor
                            fmt))
     w = torch.ones(cohort, device="cuda")
     nan_code = (((1 << fmt.exp_bits) - 1) << fmt.mant_bits) | (1 << (fmt.mant_bits - 1))
+    if weights is not None:
+        w, dead = weights.to("cuda", torch.float32), ()
     for c in dead:
         w[c] = 0.0
         cl[c] = nan_code
@@ -504,6 +549,8 @@ def check_fused_aggregate(shape, batch_axes, fmt, timer=None, dead=(1, 6), cohor
     out = dict(shape=list(shape), fmt=fmt.name, cohort=cohort, dead=len(dead), live_nan=live_nan,
                variant=VARIANTS[plan["variant"]], blocks=plan["blocks"], vec=plan["vec"],
                max_abs_err=err, same_bits=True)
+    if weights is not None:
+        out["weights"] = [round(x, 6) for x in w.tolist()]
     if timer:
         entries = math.prod(lead)
         run = lambda: agg.fused_aggregate(*args, batch_axes=batch_axes)  # noqa: E731
@@ -511,7 +558,7 @@ def check_fused_aggregate(shape, batch_axes, fmt, timer=None, dead=(1, 6), cohor
                    plain_ms=timer(lambda: ref.ref_fused_aggregate(*args, batch_axes=batch_axes)),
                    bound_ms=bound_ms(agg.fused_aggregate_moved_bytes(
                        cohort, srv.numel(), fmt, stack_entries=entries,
-                       live=cohort - len(dead))))
+                       live=int((w > 0).sum()))))
     return out
 
 
@@ -719,6 +766,13 @@ def phase_kernels() -> dict:
                               ((TRAIN_CFG.d_model, TRAIN_CFG.n_classes), 0)):
         results["fused_aggregate"].append(check_fused_aggregate(shape, batch_axes, FMT, timer))
         torch.cuda.empty_cache()
+    # an async flush's weights at the same leaf, K = 8: fractional (poly decay
+    # 0.5), and at decay 200 underflowed to exactly 0 for the stale entries
+    for decay in (0.5, 200.0):
+        w = async_engine.flush_weights(ASYNC_STALENESS, decay, "poly")
+        results["fused_aggregate"].append(check_fused_aggregate(
+            TRAIN_LEAF, 1, FMT, timer if decay == 0.5 else None, weights=w))
+        torch.cuda.empty_cache()
     # dequant_matmul: odd tails in u8 and u32, per-entry (s, b) of a doubly
     # stacked leaf, then the serve paths' products in S1E3M7, timed
     for name in ("S1E2M3", "S1E3M7", "S1E4M3", "S1E5M10", "S1E4M14"):
@@ -746,7 +800,8 @@ def phase_kernels() -> dict:
         print(f"  fused_aggregate {r['fmt']} {r['shape']} C={r['cohort']}: {r['variant']}, "
               f"{r['blocks']} blocks an entry, {'vectors' if r['vec'] else 'scalars'}, "
               f"same bits twice {r['same_bits']}"
-              + (f", device {r['device_ms']:.4f} ms" if "device_ms" in r else ""))
+              + (f", device {r['device_ms']:.4f} ms" if "device_ms" in r else "")
+              + (f", weights {r['weights']}" if "weights" in r else ""))
     for r in results["dequant_matmul"]:
         print(f"  dequant_matmul {r['fmt']} {r['shape']} {r['path']}: max err over bound "
               f"{r['max_err_over_bound']:.4g}, same bits twice {r['same_bits']}")
@@ -1245,9 +1300,9 @@ def phase_train_driver() -> dict:
                 memory_measured=mem_rows, per_round=want_round)
 
 
-def round_card_vs_cpu(name: str, family, cfg, fmt: str, batch: dict) -> tuple:
-    """2 rounds of ``make_round_fn`` from one state on the card and on the
-    CPU; returns (card losses, CPU losses, tree gap)."""
+def round_card_vs_cpu(name: str, family, cfg, fmt: str, batch: dict, rounds: int) -> tuple:
+    """``rounds`` rounds of ``make_round_fn`` from one state on the card and
+    on the CPU; returns (card losses, CPU losses, tree gap)."""
     omc = OMCConfig.parse(fmt)
     state = init_state(prng.PRNGKey(3), family, cfg, omc, fedavg(1.0), device="cuda")
     fn = make_round_fn(family, cfg, omc, fedavg(1.0), client_lr=0.05)
@@ -1257,7 +1312,7 @@ def round_card_vs_cpu(name: str, family, cfg, fmt: str, batch: dict) -> tuple:
         b = {k: v.to(dev) for k, v in batch.items()}
         ops.reset_launch_counts()
         losses = []
-        for _ in range(2):
+        for _ in range(rounds):
             st, m = fn(st, b)
             losses.append(m["loss"].item())
         got = ops.launch_counts()
@@ -1270,7 +1325,7 @@ def round_card_vs_cpu(name: str, family, cfg, fmt: str, batch: dict) -> tuple:
                 f"{name}: card and CPU losses differ: {card_losses} {host_losses}")
     gap = tree_gap(card.params, tree_map(lambda x: x.to("cuda"), host.params))  # decoded on the card
     require(gap[0] <= TREE_MAX and gap[1] <= TREE_MEAN, f"{name}: card and CPU trees differ: {gap}")
-    path = ck.save_state(str(DRIVER_DIR / f"card_{name}"), 2, card)
+    path = ck.save_state(str(DRIVER_DIR / f"card_{name}"), rounds, card)
     restored, _ = ck.restore_state(path, state.to("cpu"))
     require(states_bit_equal(restored, card.to("cpu")),
             f"{name}: the card's checkpoint restored on the CPU to other bits")
@@ -1285,14 +1340,267 @@ def round_card_vs_cpu(name: str, family, cfg, fmt: str, batch: dict) -> tuple:
 def phase_round_card_vs_cpu() -> dict:
     ccfg = dataclasses.replace(TRAIN_CFG, n_layers=2)
     task = make_frame_task(d_in=ccfg.d_in, n_classes=ccfg.n_classes, seq_len=48, num_clients=16)
-    conf = round_card_vs_cpu("conformer_s", conformer, ccfg, "S1E4M14", task.batch(0, 0, 0, 8))
+    conf = round_card_vs_cpu("conformer_s", conformer, ccfg, "S1E4M14", task.batch(0, 0, 0, 8), 2)
     torch.cuda.empty_cache()
     qcfg = dataclasses.replace(CFG, n_layers=2)
     toks = prng.randint(prng.fold_in(prng.PRNGKey(3), 1), (4, 33), 0, qcfg.vocab, "cuda")
+    # 1 round: the CPU side (the plain versions on the 311 M-value
+    # embedding) is the script's largest cost, cut to keep it under 900 s
     qwen = round_card_vs_cpu("qwen2.5-3b", transformer, qcfg, "S1E3M7",
-                             dict(tokens=toks[:, :-1], labels=toks[:, 1:]))
+                             dict(tokens=toks[:, :-1], labels=toks[:, 1:]), 1)
     torch.cuda.empty_cache()
     return dict(conformer_s=conf, qwen=qwen)
+
+
+# ---------------------------------------------------------------------------
+# 13. the async runtime at full width, 14. card against CPU
+# ---------------------------------------------------------------------------
+
+
+def async_data(cfg, clients: int, device="cuda", seq: int = 256, batch: int = 8):
+    task = make_frame_task(d_in=cfg.d_in, n_classes=cfg.n_classes, seq_len=seq,
+                           num_clients=clients, device=device)
+    return lambda c, r, s: task.batch(c, r, s, batch)
+
+
+def async_runner(cfg, params, data_fn, clients: int, acfg, trace, fused: bool):
+    return async_engine.AsyncRunner(conformer, cfg, OMCConfig.parse(FMT.name), ASYNC_SIM, acfg, trace,
+                                    num_clients=clients, data_fn=data_fn, init_params=params,
+                                    fused_agg=fused)
+
+
+def straggler(clients: int, goal: int):
+    """The straggler run's knobs: Pareto latencies (alpha 1.5), poly decay 0.5,
+    ``max_staleness`` 4."""
+    return (async_engine.AsyncConfig(buffer_goal=goal, decay=0.5, max_staleness=4),
+            traces.ParetoTrace(seed=0, latency=1.0, alpha=1.5))
+
+
+def schedule(history) -> list:
+    """A history's rows without the loss: buffer, staleness, clock, ledger."""
+    return [{k: v for k, v in h.items() if k != "loss"} for h in history]
+
+
+def plain_async_counts(clients: int, acfg, trace, fused: bool, flushes: int) -> dict:
+    """The plain versions' launches in the same run on the CPU: the schedule,
+    the training groups and the 13 compressed leaves do not depend on depth,
+    width or batch, so the run is repeated at the smoke config with a
+    1 x 8-frame batch; returned as ``.cuda`` keys."""
+    cfg = conformer_s.smoke_config()
+    shapes = {c: conformer.init(prng.PRNGKey(0), c, "meta") for c in (cfg, TRAIN_CFG)}
+    names = {c: accounting.selected_names(p, conformer.param_specs(c), OMCConfig.parse(FMT.name))
+             for c, p in shapes.items()}
+    require(names[cfg] == names[TRAIN_CFG], f"smoke and full configs select other leaves {names}")
+    params = conformer.init(prng.PRNGKey(0), cfg, "cpu")
+    ops.reset_launch_counts()
+    runner = async_runner(cfg, params, async_data(cfg, clients, "cpu", seq=8, batch=1), clients,
+                          acfg, trace, fused)
+    runner.run_until(flushes=flushes)
+    got = ops.launch_counts()
+    require(got and all(k.endswith(".ref") for k in got), f"plain async run: {got}")
+    return as_cuda(got)
+
+
+def fused_gate(a, b) -> tuple:
+    """The reference's fused-vs-unfused async gate: at each leaf's scale, max
+    |d| within 4 S1E3M7 steps and mean |d| within 1; returns the worst
+    (max / step, mean / step)."""
+    da, db = dict(tree_items(decompress_tree(a))), dict(tree_items(decompress_tree(b)))
+    require(da.keys() == db.keys(), "trees differ in structure")
+    worst = (0.0, 0.0)
+    for path, x in da.items():
+        y = db[path].to(x.device)
+        require(bool(torch.isfinite(x).all() and torch.isfinite(y).all()), f"leaf {path} not finite")
+        d = (x - y).abs()
+        scale = max(x.abs().max().item(), y.abs().max().item(), 2.0 ** -6)
+        step = 2.0 ** (math.floor(math.log2(scale)) - 7)
+        worst = (max(worst[0], d.max().item() / step), max(worst[1], d.mean().item() / step))
+    require(worst[0] <= 4 and worst[1] <= 1, f"fused vs unfused async trees: {worst} steps")
+    return worst
+
+
+def _async_save_point(runner) -> bool:
+    """Mid-buffer after the second flush: buffered uploads and a trained but
+    not uploaded cache, both non-empty."""
+    return runner.version == 2 and bool(runner.buffer) and bool(runner.trained)
+
+
+def phase_async() -> dict:
+    """The async runtime at full width, under deterministic algorithms;
+    launch counters zeroed around each part."""
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    try:
+        return _phase_async()
+    finally:
+        torch.use_deterministic_algorithms(deterministic)
+
+
+def _phase_async() -> dict:
+    cfg, omc = TRAIN_CFG, OMCConfig.parse(FMT.name)
+    params = conformer.init(prng.PRNGKey(0), cfg, "cuda")
+    counts = {}
+
+    # degenerate trace: 8 clients, buffer 8, fixed latency, decay 0 -> the engine
+    data8 = async_data(cfg, 8)
+    acfg, trace = async_engine.AsyncConfig(buffer_goal=8), traces.FixedTrace(latency=1.0)
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    runner = async_runner(cfg, params, data8, 8, acfg, trace, fused=False)
+    runner.run_until(flushes=2)
+    counts["degenerate"] = ops.launch_counts()
+    want = plain_async_counts(8, acfg, trace, False, 2)
+    require_launches(counts["degenerate"], "async degenerate", fused_aggregate=0,
+                     **{k.split(".")[0]: v for k, v in want.items()})
+    require(set(counts["degenerate"]) == set(want), f"degenerate: {counts['degenerate']} {want}")
+    est, ehist = engine.run_training_vectorized(conformer, cfg, omc, ASYNC_SIM,
+                                                engine.CohortSpec(CohortPlan(8, 8)), data8,
+                                                prng.PRNGKey(0), 2, init_params=params)
+    for i, h in enumerate(runner.history):
+        require(h["buffer"] == 8 and h["staleness_max"] == 0, f"degenerate flush {h}")
+        for k in ("down_bytes", "up_bytes"):
+            require(h[k] == sum(e[k] for e in ehist[:i + 1]), f"degenerate {k}: {h} {ehist}")
+        require(abs(h["loss"] - ehist[i]["loss"]) < 1e-3, f"degenerate losses {h} {ehist[i]}")
+    gap = tree_gap(runner.storage, est)
+    require(gap[0] <= TREE_MAX and gap[1] <= TREE_MEAN, f"degenerate vs engine trees {gap}")
+    print(f"  degenerate trace, 8 clients, 2 flushes: ledgers equal the engine's summed "
+          f"({runner.history[-1]['down_bytes']:,} down, {runner.history[-1]['up_bytes']:,} up), "
+          f"trees max |d| {gap[0]:.3g}, mean |d| {gap[1]:.3g}; launches "
+          f"{counts['degenerate']} (the plain versions' on the CPU)")
+    del runner, est
+
+    # straggler run: 32 clients, buffer 8, Pareto latencies; fused and
+    # unfused from one seed; the fused run saves mid-buffer
+    data32 = async_data(cfg, 32)
+    acfg, trace = straggler(32, 8)
+    shutil.rmtree(ASYNC_DIR, ignore_errors=True)
+    runs = {}
+    for fused in (True, False):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        runner = async_runner(cfg, params, data32, 32, acfg, trace, fused)
+        t0 = time.perf_counter()
+        saved, flush_s, at_save, save_s = None, [], None, None
+        while runner.version < ASYNC_FLUSHES:
+            v = runner.version
+            runner.step()
+            if runner.version > v:
+                torch.cuda.synchronize()
+                flush_s.append(time.perf_counter() - t0)
+            if fused and saved is None and _async_save_point(runner):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                at_save = ops.launch_counts()
+                saved = ck.save_async_state(str(ASYNC_DIR), runner)
+                save_s = time.perf_counter() - t1
+                t0 += save_s  # the save is not part of the run's time
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs[fused] = dict(runner=runner, wall_s=wall, flush_at_s=flush_s,
+                           counts=ops.launch_counts(), saved=saved, at_save=at_save,
+                           save_s=save_s, max_memory_allocated=torch.cuda.max_memory_allocated())
+        runner.trained.clear()  # trained but never uploaded: free the card
+    fr, ur = runs[True]["runner"], runs[False]["runner"]
+    require(runs[True]["saved"] is not None, "the fused run passed no mid-buffer save point")
+    require(schedule(fr.history) == schedule(ur.history),
+            f"fused and unfused async schedules differ: {fr.history} {ur.history}")
+    for hf, hu in zip(fr.history, ur.history):
+        require(math.isfinite(hf["loss"]) and abs(hf["loss"] - hu["loss"]) < 1e-3,
+                f"fused and unfused async losses differ: {hf} {hu}")
+    steps = fused_gate(fr.storage, ur.storage)
+    n_comp = sum(is_compressed(v) for _, v in tree_items(fr.storage))
+    for fused in (True, False):
+        want = plain_async_counts(32, acfg, trace, fused, ASYNC_FLUSHES)
+        got = runs[fused]["counts"]
+        require(set(got) == set(want), f"straggler fused={fused}: {got}, plain {want}")
+        require_launches(got, f"straggler fused={fused}",
+                         **{k.split(".")[0]: v for k, v in want.items()})
+    require(runs[True]["counts"]["fused_aggregate.cuda"] == n_comp * ASYNC_FLUSHES,
+            f"fused_aggregate launched {runs[True]['counts']}")
+    counts["straggler_fused"], counts["straggler_unfused"] = (runs[True]["counts"],
+                                                              runs[False]["counts"])
+    last = fr.history[-1]
+    for fused, r in runs.items():
+        fl = r["flush_at_s"]
+        print(f"  straggler {'fused  ' if fused else 'unfused'}: 32 clients, buffer 8, "
+              f"{ASYNC_FLUSHES} flushes in {r['wall_s']:.2f} s (flushes at "
+              f"{[round(x, 2) for x in fl]} s; {r['wall_s'] / ASYNC_FLUSHES * 1e3:.1f} ms per "
+              f"flush), peak {r['max_memory_allocated'] / 1e9:.2f} GB, launches {r['counts']}")
+    print(f"  straggler: {last['completed'] / last['clock']:.4f} updates per virtual second "
+          f"({last['completed']} in {last['clock']} virtual s), stale_fraction "
+          f"{last['stale_fraction']:.4f}, dropped_fraction {last['dropped_fraction']:.4f}, "
+          f"staleness max {[h['staleness_max'] for h in fr.history]}; fused vs unfused: "
+          f"max |d| {steps[0]:.3g} steps, mean {steps[1]:.3g} steps")
+    for h in fr.history:
+        print(f"    {h}")
+    del ur, runs[False]
+
+    # mid-buffer resume: a fresh runner restores the fused run's checkpoint
+    # and runs to the same flush, the same bits
+    torch.cuda.empty_cache()
+    path = Path(runs[True]["saved"])
+    ckpt_bytes = sum(f.stat().st_size for f in path.iterdir())
+    fresh = async_runner(cfg, params, data32, 32, acfg, trace, fused=True)
+    t0 = time.perf_counter()
+    extra = ck.restore_async_state(str(path), fresh)
+    restore_s = time.perf_counter() - t0
+    require(extra["buffer_meta"] and extra["trained_losses"], "the save was not mid-buffer")
+    ops.reset_launch_counts()
+    fresh.run_until(flushes=ASYNC_FLUSHES - fresh.version)
+    counts["resumed"] = ops.launch_counts()
+    want = {k: v - runs[True]["at_save"].get(k, 0) for k, v in runs[True]["counts"].items()}
+    require({k: v for k, v in counts["resumed"].items() if v}
+            == {k: v for k, v in want.items() if v},
+            f"resumed launches {counts['resumed']}, the straight run's after the save {want}")
+    require(trees_bit_equal(fresh.storage, fr.storage), "the resumed storage differs")
+    require(fresh.history == fr.history, "the resumed history differs")
+    require(fresh.stats.snapshot() == fr.stats.snapshot(), "the resumed ledger differs")
+    print(f"  resume: {path.name} after {extra['events_processed']} events (buffer "
+          f"{len(extra['buffer_meta'])}, trained cache {len(extra['trained_losses'])}, versions "
+          f"{extra['version_keys']}), {ckpt_bytes:,} bytes, saved in {runs[True]['save_s']:.2f} s, "
+          f"restored in {restore_s:.2f} s; flush {ASYNC_FLUSHES}: the same bits; launches "
+          f"{counts['resumed']}")
+    del fresh, fr, runs
+    shutil.rmtree(ASYNC_DIR, ignore_errors=True)
+    total = {}
+    for c in counts.values():
+        for k, v in c.items():
+            total[k] = total.get(k, 0) + v
+    return dict(counts=total, by_part=counts, history=last)
+
+
+def phase_async_card_vs_cpu() -> tuple:
+    """The straggler run cut to 2 layers at full width, 16 clients, buffer 4,
+    2 fused flushes, on the card (kernels) and on the CPU (plain versions):
+    the same schedule and ledger, the same launches, trees within phase 7's
+    gate."""
+    cfg = dataclasses.replace(TRAIN_CFG, n_layers=2)
+    params = conformer.init(prng.PRNGKey(4), cfg, "cuda")
+    acfg, trace = straggler(16, 4)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        ops.reset_launch_counts()
+        runner = async_runner(cfg, tree_map(lambda x, d=dev: x.to(d), params),
+                              async_data(cfg, 16, dev), 16, acfg, trace, fused=True)
+        runner.run_until(flushes=2)
+        got = ops.launch_counts()
+        backend = "cuda" if dev == "cuda" else "ref"
+        require(got and all(k.endswith(backend) for k in got), f"async on {dev}: {got}")
+        out[dev] = (runner, got)
+    (card, cc), (host, hc) = out["cuda"], out["cpu"]
+    require(cc == as_cuda(hc), f"async launches: card {cc}, CPU {hc}")
+    require(schedule(card.history) == schedule(host.history), "card and CPU async schedules differ")
+    for a, b in zip(card.history, host.history):
+        require(abs(a["loss"] - b["loss"]) < 1e-3, f"card and CPU async losses differ: {a} {b}")
+    gap = tree_gap(card.storage, tree_map(lambda x: x.to("cuda"), host.storage))
+    require(gap[0] <= TREE_MAX and gap[1] <= TREE_MEAN, f"card and CPU async trees differ: {gap}")
+    print(f"  async, 2 layers at full width, 16 clients, buffer 4, 2 fused flushes: schedules "
+          f"and ledgers equal, losses card {[h['loss'] for h in card.history]} / CPU "
+          f"{[h['loss'] for h in host.history]}, trees max |d| {gap[0]:.3g}, mean |d| "
+          f"{gap[1]:.3g}; launches {cc}")
+    return gap
 
 
 def kernel_line(kernels: dict, counts_by_path: dict) -> dict:
@@ -1300,7 +1608,7 @@ def kernel_line(kernels: dict, counts_by_path: dict) -> dict:
                    unpack=list(EMBED), quantize=[COHORT, *TRAIN_LEAF],
                    fused_aggregate=list(TRAIN_LEAF), dequant_matmul=list(DECODE_W1))
     keys = ("shape", "path", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
-            "f32_simt_bound_ms", "matmul_alone_ms", "max_err_over_bound", "variant")
+            "f32_simt_bound_ms", "matmul_alone_ms", "max_err_over_bound", "variant", "weights")
     entries = []
     for name, rows in kernels["results"].items():
         timed = [r for r in rows if "ms" in r]
@@ -1323,29 +1631,45 @@ def kernel_line(kernels: dict, counts_by_path: dict) -> dict:
                 stacked_mlp=kernels["stacked"])
 
 
+def timed(number: int, name: str, fn, *args):
+    """Run one phase and print its wall seconds on a line of its own."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    print(f"phase {number} ({name}): {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device available")
-    phase_environment()
-    kernels = phase_kernels()
-    served = phase_serve()
-    phase_card_vs_cpu(served["session"])
+    t0 = time.perf_counter()
+    timed(1, "environment and build", phase_environment)
+    kernels = timed(2, "kernels against their plain versions", phase_kernels)
+    served = timed(3, "serve qwen2.5-3b", phase_serve)
+    timed(4, "qwen2.5-3b card against CPU", phase_card_vs_cpu, served["session"])
     del served["session"]
-    served_g = phase_serve_griffin()
-    phase_griffin_card_vs_cpu(served_g["session"])
+    served_g = timed(5, "serve recurrentgemma-2b", phase_serve_griffin)
+    timed(6, "recurrentgemma-2b card against CPU", phase_griffin_card_vs_cpu, served_g["session"])
     del served_g["session"]
     torch.cuda.empty_cache()
-    trained = phase_train()
-    phase_train_card_vs_cpu()
-    tables = phase_tables()
-    phase_tables_card_vs_cpu()
-    driver = phase_train_driver()
-    phase_round_card_vs_cpu()
-    print(json.dumps(kernel_line(kernels, dict(serve=served["report"]["launch_counts"],
-                                               serve_griffin=served_g["report"]["launch_counts"],
-                                               train=trained["counts"],
-                                               tables=tables["counts"],
-                                               train_driver=driver["counts"]))))
+    trained = timed(7, "train conformer_s", phase_train)
+    timed(8, "train card against CPU", phase_train_card_vs_cpu)
+    tables = timed(9, "paper tables", phase_tables)
+    timed(10, "tables' loop card against CPU", phase_tables_card_vs_cpu)
+    driver = timed(11, "training driver", phase_train_driver)
+    timed(12, "round card against CPU", phase_round_card_vs_cpu)
+    torch.cuda.empty_cache()
+    asynced = timed(13, "async runtime", phase_async)
+    torch.cuda.empty_cache()
+    timed(14, "async card against CPU", phase_async_card_vs_cpu)
+    print(f"all phases: {time.perf_counter() - t0:.1f} s")
+    print(json.dumps(kernel_line(kernels, {"serve": served["report"]["launch_counts"],
+                                           "serve_griffin": served_g["report"]["launch_counts"],
+                                           "train": trained["counts"],
+                                           "tables": tables["counts"],
+                                           "train_driver": driver["counts"],
+                                           "async": asynced["counts"]})))
     print(json.dumps(dict(ok=True, device=dict(platform="gpu", kind=torch.cuda.get_device_name(0),
                                                count=torch.cuda.device_count()))))
 

@@ -1,9 +1,11 @@
 """Atomic checkpoints of federated server state (port of ``repro.checkpoint``).
 
-Sync state goes through :func:`save_state` / :func:`restore_state`, in the
-reference's layout (each package restores the other's); the async runtime's
-and the sharded population's snapshots raise ``NotImplementedError`` until
-their modules are ported (ROADMAP A8, A9).
+Sync state goes through :func:`save_state` / :func:`restore_state` and the
+async runtime's mid-buffer snapshot (server storage, buffer, version-stamped
+pending tickets, trace counters, ledger) through :func:`save_async_state` /
+:func:`restore_async_state` (DESIGN.md §10), in the reference's layout: each
+package restores the other's.  The sharded population's snapshots raise
+``NotImplementedError`` until ``scale.store`` is ported (ROADMAP A9).
 """
 
 from .ckpt import (

@@ -25,8 +25,11 @@ The codes of an OMC state are stored in their uint containers, so the
 checkpoint is itself compressed (about the paper's parameter-memory ratio on
 disk, for a format whose container is narrower than f32).
 
-The async runtime's and the sharded population's checkpoints wait for their
-modules (ROADMAP A8, A9).
+The async runtime's snapshot (:func:`save_async_state` /
+:func:`restore_async_state`) rides on the same layout: its arrays are one
+tree (``storage``, ``buffer``, ``versions``, ``trained``) and its event
+loop's scalars the manifest's ``extra``, in the reference's keys.  The
+sharded population's checkpoints wait for ``scale.store`` (ROADMAP A9).
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ import torch
 
 from repro_torch.core.formats import FloatFormat
 from repro_torch.core.store import CompressedVariable, is_compressed
+from repro_torch.core.tree import tree_map
 from repro_torch.federated.state import TrainState
 
 _CKPT_RE = re.compile(r"^ckpt_(\d+)$")
@@ -209,6 +213,136 @@ def restore_state(path: str, template):
     return _rebuild(template, iter(out)), manifest
 
 
+def _decompressed_template(storage):
+    """A tree shaped like a trained client model (the decoded storage), on
+    the storage's devices, holding no memory: ``restore_state`` reads only
+    each leaf's shape and device."""
+
+    return tree_map(lambda x: torch.empty((), device=x.device).expand(x.codes.shape)
+                    if is_compressed(x) else x, storage)
+
+
+def _async_state_tree(runner) -> Dict[str, Any]:
+    """The runner's array-bearing state as one tree (DESIGN.md §10): the
+    server storage, the buffered models, the storages of the versions that
+    pending tickets still reference, and the trained-but-not-uploaded cache,
+    so a killed run resumes mid-buffer with nothing retrained and nothing
+    downloaded again.  Keys as the reference's: versions ``str(v)``, the
+    cache ``"v|c"``; the leaf order sorts them as strings, as JAX does."""
+    return dict(
+        storage=runner.storage,
+        buffer=[e.model for e in runner.buffer],
+        versions={str(v): s for v, s in sorted(runner.version_storages.items())},
+        trained={f"{v}|{c}": m for (v, c), (m, _) in sorted(runner.trained.items())},
+    )
+
+
+def save_async_state(ckpt_dir: str, runner, keep: int = 3) -> str:
+    """Checkpoint a :class:`repro_torch.federated.async_engine.AsyncRunner`.
+
+    Arrays go through :func:`save_state`; the event loop's scalars (virtual
+    clock, version, pending tickets, trace counters, history, wire ledger)
+    travel in the manifest's ``extra``, in the reference's keys, which is all
+    a deterministic resume needs (traces are functions of their counters).
+    The step is ``events_processed``.
+    """
+    extra = dict(
+        kind="async_runner",
+        version=int(runner.version),
+        clock=float(runner.clock),
+        events_processed=int(runner.events_processed),
+        completed=int(runner.completed),
+        dropped_stale=int(runner.dropped_stale),
+        buffer_meta=[[int(e.client_id), int(e.base_version), float(e.loss)]
+                     for e in runner.buffer],
+        pending=[[int(c), int(p.base_version), int(p.round_index), float(p.upload_at)]
+                 for c, p in runner.pending.items()],
+        idle=[[int(c), float(t)] for c, t in runner.idle.items()],
+        version_keys=sorted(int(v) for v in runner.version_storages),
+        event_counters={str(c): int(k) for c, k in runner.event_counters.items()},
+        round_counters={str(c): int(k) for c, k in runner.round_counters.items()},
+        population_layout=None,
+        trained_losses={f"{v}|{c}": float(l) for (v, c), (_, l) in runner.trained.items()},
+        has_ef=False,
+        fused_agg=bool(runner.fused_agg),
+        history=runner.history,
+        stats=(dict(snapshot=runner.stats.snapshot(),
+                    pending={str(c): int(b) for c, b in runner.stats._pending.items()})
+               if runner.stats is not None else None),
+    )
+    return save_state(ckpt_dir, runner.events_processed, _async_state_tree(runner), keep=keep,
+                      extra=extra)
+
+
+_STATS_FIELDS = ("down_bytes", "up_bytes", "stale_up_bytes", "dropped_up_bytes",
+                 "in_flight_bytes", "peak_in_flight_bytes", "n_downloads", "n_uploads",
+                 "n_stale", "n_dropped")
+
+
+def restore_async_state(path: str, runner) -> Dict[str, Any]:
+    """Restore a :func:`save_async_state` checkpoint (either package's) into
+    ``runner``, a freshly built ``AsyncRunner`` with the same family, config,
+    trace and data: its storage gives the templates (fused buffer entries
+    are shaped like the storage, unfused ones like the decoded tree), and
+    every mutable field is overwritten in place.  Returns the manifest's
+    ``extra``."""
+    with open(os.path.join(path, "manifest.json")) as f:
+        extra = json.load(f)["extra"]
+    if extra.get("kind") != "async_runner":
+        raise ValueError(f"not an async-runner checkpoint: {path}")
+    fused = bool(extra.get("fused_agg"))
+    if fused != bool(runner.fused_agg):
+        raise ValueError(
+            f"fused_agg mismatch: checkpoint was written with fused_agg={fused} but the "
+            f"runner has fused_agg={bool(runner.fused_agg)} — construct the runner the same "
+            "way (DESIGN.md §13)")
+    if extra.get("population_layout") is not None:
+        raise ValueError(
+            f"population layout mismatch: checkpoint was written with "
+            f"layout={extra['population_layout']} but the runner has layout=None — "
+            "construct the runner with the same ShardLayout (or None); cross-layout restore "
+            "needs an offline reshard (DESIGN.md §14)")
+    if bool(extra.get("has_ef")):
+        raise ValueError(
+            "error-feedback state mismatch: checkpoint has residuals but the runner lacks "
+            "them — construct the runner with the same strategy= the checkpointed run used")
+    entry_t = runner.storage if fused else _decompressed_template(runner.storage)
+    template = dict(
+        storage=runner.storage,
+        buffer=[entry_t] * len(extra["buffer_meta"]),
+        versions={str(v): runner.storage for v in extra["version_keys"]},
+        trained={k: entry_t for k in sorted(extra["trained_losses"])},
+    )
+    state, _ = restore_state(path, template)
+
+    from repro_torch.federated.async_engine import _BufferEntry, _Pending
+
+    runner.storage = state["storage"]
+    runner.version = int(extra["version"])
+    runner.clock = float(extra["clock"])
+    runner.events_processed = int(extra["events_processed"])
+    runner.completed = int(extra["completed"])
+    runner.dropped_stale = int(extra["dropped_stale"])
+    runner.buffer = [_BufferEntry(int(c), int(b), m, float(l))
+                     for (c, b, l), m in zip(extra["buffer_meta"], state["buffer"])]
+    runner.pending = {int(c): _Pending(int(b), int(r), float(t))
+                      for c, b, r, t in extra["pending"]}
+    runner.idle = {int(c): float(t) for c, t in extra["idle"]}
+    runner.event_counters = {int(c): int(k) for c, k in extra["event_counters"].items()}
+    runner.round_counters = {int(c): int(k) for c, k in extra["round_counters"].items()}
+    runner.version_storages = {int(v): s for v, s in state["versions"].items()}
+    runner.trained = {(int(k.split("|")[0]), int(k.split("|")[1])): (state["trained"][k], float(l))
+                      for k, l in extra["trained_losses"].items()}
+    runner.history = list(extra["history"])
+    if extra["stats"] is not None and runner.stats is not None:
+        snap = extra["stats"]["snapshot"]
+        for field in _STATS_FIELDS:
+            setattr(runner.stats, field, int(snap[field]))
+        runner.stats._pending = {int(c): int(b) for c, b in extra["stats"]["pending"].items()}
+    runner._rebuild_heap()
+    return extra
+
+
 def _unported(name: str, item: str):
     def f(*args, **kwargs):
         raise NotImplementedError(f"checkpoint.{name} waits for its module (ROADMAP {item})")
@@ -217,7 +351,5 @@ def _unported(name: str, item: str):
     return f
 
 
-save_async_state = _unported("save_async_state", "A8, the async runtime")
-restore_async_state = _unported("restore_async_state", "A8, the async runtime")
 save_population_state = _unported("save_population_state", "A9, scale.store")
 restore_population_state = _unported("restore_population_state", "A9, scale.store")

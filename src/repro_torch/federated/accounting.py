@@ -1,5 +1,5 @@
-"""Wire-byte accounting shared by the loop and the engine (port of
-``repro.federated.accounting``, without the strategy and async ledgers).
+"""Wire-byte accounting shared by the loop, the engine and the async runtime
+(port of ``repro.federated.accounting``, without the strategy ledgers).
 
 A :class:`WireTable` is built once per model from the f32 parameter tree:
 one row per policy-selected variable, in the order ``ppq_mask`` indexes
@@ -12,15 +12,17 @@ them.  Per-round bytes then follow from the PPQ masks alone:
     is set travel packed under the client's format, the rest f32.
 
 The masks equal the reference's bit for bit (``core.prng``), so the ledgers
-equal its ledgers byte for byte.  ``AsyncWireStats`` and ``StreamLedger``
-belong to the async and sharded runtimes, not ported yet (ROADMAP A8, A9).
+equal its ledgers byte for byte.  :class:`AsyncWireStats` is the async
+runtime's event-granular ledger.  The strategy sizes wait for the
+strategies (ROADMAP A7); ``StreamLedger`` belongs to the streamed round of
+``scale/stream``, not ported yet (ROADMAP A9).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Sequence, Tuple
+from typing import Any, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -142,3 +144,95 @@ def download_bytes_train(table: WireTable, omc: OMCConfig, strategy=None) -> int
     ``download_bytes``)."""
     _no_strategy(strategy)
     return table.download_bytes(omc)
+
+
+@dataclasses.dataclass
+class AsyncWireStats:
+    """Wire-byte ledger for the non-barrier runtime (DESIGN.md §10).
+
+    The async runtime has no rounds: downloads and uploads interleave across
+    server versions, so this ledger counts bytes at event granularity and
+    splits uploads by staleness.  An upload whose base version is behind the
+    server at arrival costs full wire bytes and carries a decayed weight
+    (``stale_up_bytes``); one past ``max_staleness`` is waste
+    (``dropped_up_bytes``, not in ``up_bytes``).  ``in_flight_bytes`` is the
+    volume of started-but-unfinished client rounds (the download issued plus
+    the upload it commits to); its peak bounds the transport buffering a
+    deployment must provision.  Sizes come from the same :class:`WireTable`
+    rows as the sync paths, so the totals equal theirs byte for byte.
+
+    ``strategy`` (training under a compression strategy) raises until the
+    strategies are ported (ROADMAP A7).
+    """
+
+    table: WireTable
+    strategy: Optional[Any] = None
+    down_bytes: int = 0
+    up_bytes: int = 0  # every accepted upload; stale ones are also in stale_up_bytes
+    stale_up_bytes: int = 0  # arrived with staleness > 0 (subset of up_bytes)
+    dropped_up_bytes: int = 0  # discarded past max_staleness (NOT in up_bytes)
+    in_flight_bytes: int = 0
+    peak_in_flight_bytes: int = 0
+    n_downloads: int = 0
+    n_uploads: int = 0
+    n_stale: int = 0
+    n_dropped: int = 0
+    _pending: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    def __post_init__(self):
+        _no_strategy(self.strategy)
+
+    def _up(self, omc: OMCConfig, round_index: int, client_id: int) -> int:
+        return client_upload_bytes(self.table, omc, round_index, client_id)
+
+    def start_round(self, omc: OMCConfig, round_index: int, client_id: int) -> None:
+        """Client checked in: the full download now, the upload committed.
+        ``round_index`` is the client's own round counter (it keys the PPQ
+        mask), not the server version."""
+        down = download_bytes_train(self.table, omc)
+        up = self._up(omc, round_index, client_id)
+        self.down_bytes += down
+        self.n_downloads += 1
+        self._pending[client_id] = down + up
+        self.in_flight_bytes += down + up
+        self.peak_in_flight_bytes = max(self.peak_in_flight_bytes, self.in_flight_bytes)
+
+    def finish_round(self, omc: OMCConfig, round_index: int, client_id: int, staleness: int,
+                     dropped: bool = False) -> int:
+        """The client's upload arrived; returns its wire bytes."""
+        up = self._up(omc, round_index, client_id)
+        self.in_flight_bytes -= self._pending.pop(client_id)
+        if dropped:
+            self.dropped_up_bytes += up
+            self.n_dropped += 1
+            return up
+        self.up_bytes += up
+        self.n_uploads += 1
+        if staleness > 0:
+            self.stale_up_bytes += up
+            self.n_stale += 1
+        return up
+
+    def snapshot(self) -> dict:
+        """The ledger now, with the reference's keys.  ``stale_fraction`` is
+        the share of accepted upload bytes that arrived stale,
+        ``dropped_fraction`` the share of all finished upload bytes dropped
+        past ``max_staleness``; both 0.0 before any upload.  These two and
+        ``peak_in_flight_bytes`` are a schema (DESIGN.md §15): renaming them
+        breaks readers."""
+        finished = self.up_bytes + self.dropped_up_bytes
+        return dict(
+            down_bytes=int(self.down_bytes),
+            up_bytes=int(self.up_bytes),
+            stale_up_bytes=int(self.stale_up_bytes),
+            dropped_up_bytes=int(self.dropped_up_bytes),
+            in_flight_bytes=int(self.in_flight_bytes),
+            peak_in_flight_bytes=int(self.peak_in_flight_bytes),
+            n_downloads=int(self.n_downloads),
+            n_uploads=int(self.n_uploads),
+            n_stale=int(self.n_stale),
+            n_dropped=int(self.n_dropped),
+            stale_fraction=(float(self.stale_up_bytes / self.up_bytes)
+                            if self.up_bytes else 0.0),
+            dropped_fraction=float(self.dropped_up_bytes / finished) if finished else 0.0,
+        )

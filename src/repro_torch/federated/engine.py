@@ -19,9 +19,9 @@ Semantics kept from the reference:
     ``where`` before any mean, so a diverged dead client cannot poison it;
   * ``finish`` decodes, averages, interpolates and re-compresses;
     ``finish_fused`` (``fused_agg=True``) transport-encodes each compressed
-    leaf's stack and aggregates it in the code domain with one
-    ``ops.fused_aggregate`` launch per leaf; unselected leaves keep the f32
-    mean.
+    leaf's stack and hands the encoded stacks to :func:`fused_server_step`
+    (also the async runtime's fused flush): one ``ops.fused_aggregate``
+    launch per compressed leaf; unselected leaves keep the f32 mean.
 
 ``strategy``, ``ste``, ``ef`` and ``obs`` belong to later slices (ROADMAP
 A7, A9) and raise ``NotImplementedError``; ``data_mode`` is accepted for
@@ -223,6 +223,27 @@ def apply_server_step(server_f32, mean_model, specs, omc: OMCConfig, server_lr: 
     return compress_params(new_f32, specs, omc) if omc.enabled else new_f32
 
 
+def fused_server_step(storage, stacked, w: torch.Tensor, specs, omc: OMCConfig,
+                      server_lr: float):
+    """The server half of every fused round: each compressed leaf of
+    ``storage`` aggregates its stack of transport-encoded uploads
+    (``stacked``'s ``CompressedVariable`` with a leading client axis) with
+    one ``ops.fused_aggregate`` launch under weights ``w``; unselected
+    leaves take the f32 weighted mean of their stack and the interpolation
+    with ``server_lr``."""
+
+    def f(path, spec_t, srv, stack):
+        if is_compressed(srv):
+            new_codes, s, b = kernel_ops.fused_aggregate(
+                srv.codes, srv.s, srv.b, stack.codes, stack.s, stack.b, w, server_lr, srv.fmt,
+                batch_axes=n_stack_axes(spec_t, srv.codes), pvt=omc.pvt)
+            return CompressedVariable(new_codes, s, b, srv.fmt)
+        mean = cohort_lib.aggregate_weighted(stack, w)
+        return srv + server_lr * (mean - srv)
+
+    return tree_map_with_path(f, specs, storage, stacked)
+
+
 # ---------------------------------------------------------------------------
 # The round
 # ---------------------------------------------------------------------------
@@ -267,20 +288,16 @@ def make_round_fn(family, cfg, specs, omc: OMCConfig, sim: SimConfig, spec: Coho
     def finish_fused(storage, stacked, loss_c, alive):
         w, loss, n_alive = losses_and_weights(loss_c, alive)
 
-        def f(path, spec_t, srv, stack):
+        def encode(path, spec_t, srv, stack):
             if is_compressed(srv):
-                ba = n_stack_axes(spec_t, srv.codes)
-                codes_c, s_c, b_c = transport_encode_stacked(stack, srv.fmt, omc.pvt, ba)
-                new_codes, s, b = kernel_ops.fused_aggregate(
-                    srv.codes, srv.s, srv.b, codes_c, s_c, b_c, w, sim.server_lr, srv.fmt,
-                    batch_axes=ba, pvt=omc.pvt)
-                return CompressedVariable(new_codes, s, b, srv.fmt)
-            # unselected leaves keep the f32 mean and interpolation
-            x = torch.where(_alive_rows(alive, stack), stack, torch.zeros((), device=stack.device))
-            mean = cohort_lib.aggregate_weighted(x, w)
-            return srv + sim.server_lr * (mean - srv)
+                codes_c, s_c, b_c = transport_encode_stacked(
+                    stack, srv.fmt, omc.pvt, n_stack_axes(spec_t, srv.codes))
+                return CompressedVariable(codes_c, s_c, b_c, srv.fmt)
+            # unselected leaves keep the f32 mean: dead rows zeroed first
+            return torch.where(_alive_rows(alive, stack), stack, torch.zeros((), device=stack.device))
 
-        return tree_map_with_path(f, specs, storage, stacked), loss, n_alive
+        encoded = tree_map_with_path(encode, specs, storage, stacked)
+        return fused_server_step(storage, encoded, w, specs, omc, sim.server_lr), loss, n_alive
 
     def round_fn(storage, ids_per_tier, alive, round_index: int):
         with torch.no_grad():

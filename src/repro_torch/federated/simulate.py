@@ -31,7 +31,7 @@ from repro_torch.core import prng
 from repro_torch.core.omc import OMCConfig, qdq_pvt_leaf
 from repro_torch.core.partial import ppq_mask
 from repro_torch.core.policy import path_str
-from repro_torch.core.store import decompress_tree
+from repro_torch.core.store import CompressedVariable, decompress_tree, is_compressed
 from repro_torch.core.tree import tree_items, tree_map, tree_map_with_path
 from repro_torch.models.common import IDENTITY_MAT
 
@@ -50,8 +50,16 @@ def check_unported(strategy=None, ste: bool = False, ef=None, obs=None) -> None:
 
 
 def stack_trees(trees):
-    """``[tree, tree, ...]`` -> one tree with leaves stacked on a new leading axis."""
-    return tree_map(lambda *xs: torch.stack(xs), *trees)
+    """``[tree, tree, ...]`` -> one tree with leaves stacked on a new leading
+    axis; a ``CompressedVariable`` stacks its codes, ``s`` and ``b``."""
+
+    def f(*xs):
+        if is_compressed(xs[0]):
+            return CompressedVariable(*(torch.stack([getattr(x, k) for x in xs])
+                                        for k in ("codes", "s", "b")), xs[0].fmt)
+        return torch.stack(xs)
+
+    return tree_map(f, *trees)
 
 
 def client_view(params_f32, specs, omc: OMCConfig, round_index: int, client_id: int,

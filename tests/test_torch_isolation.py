@@ -83,6 +83,22 @@ def test_train_without_a_card_raises_instead_of_using_the_cpu(monkeypatch):
         train.run(train.parse_args([]))  # the full-width default, conformer_s
 
 
+def test_async_runtime_without_a_card_raises_instead_of_using_the_cpu(monkeypatch):
+    from repro_torch.core import prng
+    from repro_torch.core.omc import OMCConfig
+    from repro_torch.federated import async_engine, simulate, traces
+    from repro_torch.models import conformer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = conformer.ConformerConfig(n_layers=1, d_model=16, n_heads=2, d_ff=32, n_classes=8,
+                                    d_in=4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        async_engine.run_async_training(
+            conformer, cfg, OMCConfig.parse("S1E3M7"), simulate.SimConfig(),
+            async_engine.AsyncConfig(buffer_goal=2), traces.FixedTrace(), None,
+            prng.PRNGKey(0), num_clients=2, flushes=1)
+
+
 def test_unported_archs_and_families_name_the_roadmap():
     assert get_arch("qwen2.5-3b").ID == "qwen2.5-3b"
     with pytest.raises(KeyError, match="ROADMAP"):

@@ -14,7 +14,10 @@ the affine ``decode·s + b`` within the fused-vs-unfused multiply-add bound
 ``fused_aggregate``'s codes equal the reference's except on a
 round-to-nearest-even tie fringe of at most 0.5%, where they differ by one
 code (test_kernels.py:129-133's gate: f32 sums over clients taken in
-another order), and its (s, b) within rtol=2e-5, atol=2e-6.
+another order), and its (s, b) within rtol=2e-5, atol=2e-6; so also with
+the async runtime's flush weights (fractional, and underflowed to exactly 0
+for live stale entries), on which the CUDA kernel must equal the plain
+version bit for bit as on 0/1 weights.
 
 The kernels' host-side rules are stated in Python and tested here:
 ``fused_aggregate``'s variant for a format and cohort
@@ -46,6 +49,7 @@ except ImportError:
 from repro_torch.core import packing
 from repro_torch.core.formats import FloatFormat, narrow, widen
 from repro_torch.core.store import bit_equal
+from repro_torch.federated import async_engine
 from repro_torch.kernels import agg
 from repro_torch.kernels import bitpack as bk
 from repro_torch.kernels import ops
@@ -228,16 +232,17 @@ def test_quantize_plain_matches_reference_and_quantize_stats(name, shape):
     assert bit_equal(codes, ref.ref_quantize_stats(torch.from_numpy(x), fmt)[0])
 
 
-def _fused_case(name, shape, batch_axes, cohort=5, seed=0, dead=(1,)):
+def _fused_case(name, shape, batch_axes, cohort=5, seed=0, dead=(1,), weights=None):
     """Server and client variables in storage form from a numpy seed, and a
-    survival mask.  Dead clients carry a genuine NaN code, so the where-guard
-    is what keeps them out of the mean."""
+    survival mask (or, with ``weights``, those client weights).  Dead clients
+    carry a genuine NaN code, so the where-guard is what keeps them out of
+    the mean."""
     fmt = FloatFormat.parse(name)
     rng = np.random.default_rng(seed)
     srv = ref.ref_quantize(torch.from_numpy(rng.standard_normal(shape).astype(np.float32)), fmt)
     cl = ref.ref_quantize(torch.from_numpy(
         (rng.standard_normal((cohort,) + shape) * 0.7).astype(np.float32)), fmt)
-    w = np.ones((cohort,), np.float32)
+    w = np.ones((cohort,), np.float32) if weights is None else np.array(weights, np.float32)
     nan_code = (((1 << fmt.exp_bits) - 1) << fmt.mant_bits) | (1 << (fmt.mant_bits - 1))
     for c in dead:
         w[c] = 0.0
@@ -278,6 +283,41 @@ def test_fused_aggregate_plain_matches_reference(name, shape, batch_axes):
         _assert_codes_close(codes.numpy(), np.asarray(want[0]))
         assert s.shape == want[1].shape and b.shape == want[2].shape
         assert torch.isfinite(s).all() and torch.isfinite(b).all()
+        np.testing.assert_allclose(s.numpy(), np.asarray(want[1]), rtol=2e-5, atol=2e-6)
+        np.testing.assert_allclose(b.numpy(), np.asarray(want[2]), rtol=2e-5, atol=2e-6)
+
+
+# a buffer flush's staleness weights (async_engine.flush_weights), K = 5:
+# fractional weights, and at decay 200 weights that underflow to exactly 0
+# for live, stale entries (their planes are skipped like dead ones)
+STALENESS = {"poly0.5": ([0, 1, 1, 2, 3], 0.5, "poly"), "exp2": ([0, 2, 5, 1, 0], 2.0, "exp"),
+             "poly200": ([0, 1, 3, 0, 2], 200.0, "poly")}
+
+
+def _staleness_case(name, shape, batch_axes, which):
+    s, decay, mode = STALENESS[which]
+    w = async_engine.flush_weights(np.asarray(s, np.float32), decay, mode).numpy()
+    assert np.all(w <= 1) and w.max() > 0 and (which != "poly200" or (w == 0).sum() == 3)
+    return _fused_case(name, shape, batch_axes, dead=(), weights=w)
+
+
+@pytest.mark.parametrize("which", sorted(STALENESS))
+@pytest.mark.parametrize("name", FMTS)
+@pytest.mark.parametrize("shape,batch_axes", [((37, 19), 0), ((3, 40, 17), 1)],
+                         ids=["flat2d", "stacked1"])
+def test_fused_aggregate_plain_matches_reference_with_staleness_weights(name, shape,
+                                                                       batch_axes, which):
+    """The async flush's fractional weights: the plain version against the
+    reference's oracle, and in S1E3M7 against its Pallas body in interpret
+    mode, at the gate of the 0/1-weight cases."""
+    case, jcase, fmt, jfmt = _staleness_case(name, shape, batch_axes, which)
+    codes, s, b = ops.fused_aggregate(*case, 0.5, fmt, batch_axes=batch_axes)
+    wants = [jref.ref_fused_aggregate(*jcase, 0.5, jfmt, batch_axes=batch_axes)]
+    if name == "S1E3M7":
+        wants.append(jagg.fused_aggregate(*jcase, 0.5, jfmt, batch_axes=batch_axes,
+                                          interpret=True))
+    for want in wants:
+        _assert_codes_close(codes.numpy(), np.asarray(want[0]))
         np.testing.assert_allclose(s.numpy(), np.asarray(want[1]), rtol=2e-5, atol=2e-6)
         np.testing.assert_allclose(b.numpy(), np.asarray(want[2]), rtol=2e-5, atol=2e-6)
 
@@ -355,6 +395,23 @@ def test_cuda_codec_kernels_match_plain(cuda, name, shape, batch_axes):
                                               ((2, 3, 130), 2)], ids=str)
 def test_cuda_fused_aggregate_matches_plain(cuda, name, shape, batch_axes):
     case, _, fmt, _ = _fused_case(name, shape, batch_axes)
+    case = [t.to(cuda) for t in case]
+    codes, sums = agg.fused_aggregate(*case, 0.7, fmt, batch_axes=batch_axes)
+    rcodes, rsums = ref.ref_fused_aggregate(*case, 0.7, fmt, batch_axes=batch_axes)
+    assert bit_equal(codes, rcodes)
+    torch.testing.assert_close(sums, rsums, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", sorted(STALENESS))
+@pytest.mark.parametrize("name", FMTS)
+@pytest.mark.parametrize("shape,batch_axes", [((37, 19), 0), ((3, 40, 17), 1),
+                                              ((17, 4096), 1)], ids=str)
+def test_cuda_fused_aggregate_matches_plain_with_staleness_weights(cuda, name, shape,
+                                                                  batch_axes, which):
+    """Fractional flush weights (and weights underflowed to 0): the kernel's
+    codes bit for bit the plain version's, sums within rtol = atol = 1e-4."""
+    case, _, fmt, _ = _staleness_case(name, shape, batch_axes, which)
     case = [t.to(cuda) for t in case]
     codes, sums = agg.fused_aggregate(*case, 0.7, fmt, batch_axes=batch_axes)
     rcodes, rsums = ref.ref_fused_aggregate(*case, 0.7, fmt, batch_axes=batch_axes)
