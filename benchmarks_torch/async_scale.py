@@ -23,13 +23,11 @@ data stream and Pareto heavy-tail latency trace:
 ``--smoke`` is the reference's smoke run (its 2-layer, d 32 conformer,
 cohort 8, buffer 4, 3 rounds, batch 1, 8 frames) through the plain
 versions.  Without it the model is conformer_s' published config (17
-layers, d 512) on the card, cohort 32 and buffer 8 by default: at the
-reference's cohort 64 and buffer 16 an H100 80GB runs out of memory in the
-first timed sync round (65.15 GiB allocated: the round's 64 stacked f32
-models and their dead-row mask, beside the trained models the async runner
-keeps cached), while cohort 32 peaks at 40.9 GB.  The row records the
-process's peak device memory.  Writes
-``experiments/bench_torch/async_scale.json``.
+layers, d 512) on the card at the reference's cohort 64 and buffer 16: the
+engine's round holds the cohort's 64 trained f32 models once, in their
+stack, beside the trained models the async runner keeps cached, and an
+H100 80GB peaks at about 53 GB.  The row records the process's peak device
+memory.  Writes ``experiments/bench_torch/async_scale.json``.
 """
 
 from __future__ import annotations
@@ -165,7 +163,7 @@ def bench(cfg, cohort: int, buffer_goal: int, rounds: int, batch: int, seq: int,
     )
 
 
-def run(cohort=32, buffer_goal=8, rounds=5, batch=1, seq=8, alpha=1.5, fmt="S1E3M7", seed=0,
+def run(cohort=64, buffer_goal=16, rounds=5, batch=1, seq=8, alpha=1.5, fmt="S1E3M7", seed=0,
         smoke=False):
     rounds = max(1, min(rounds, int(os.environ.get("BENCH_ROUNDS", rounds))))
     device = bench_device(smoke)
@@ -192,8 +190,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--smoke", action="store_true",
                     help="the reference's CI config on the CPU: cohort 8, buffer 4, 3 rounds")
-    ap.add_argument("--cohort", type=int, default=32)
-    ap.add_argument("--buffer", type=int, default=8)
+    ap.add_argument("--cohort", type=int, default=64)
+    ap.add_argument("--buffer", type=int, default=16)
     ap.add_argument("--rounds", type=int, default=None)
     ap.add_argument("--batch", type=int, default=1)
     ap.add_argument("--seq", type=int, default=8)

@@ -46,9 +46,18 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
      states, the error over the bound printed for each; and every
      finite code of S1E2M3, S1E3M7, S1E4M3, S1E5M10 and S1E4M14 decoded
      inside the kernel, on both of its paths, exactly as the plain decode.
+     ``dequantize`` decodes every code of the same five formats, inf and
+     NaN included, exactly as the plain version does, each in the variant
+     ``kernel_variant`` states (S1E3M7 and S1E4M14 compiled in, the others
+     at run time), on vectors with one (s, b) and with 16 stacked entries'
+     pairs, and off the 16-byte grid (scalars); every ``dequantize`` case
+     gives the same bits from two launches with one on all-NaN codes
+     between them, and prints its variant.  It is also timed at
+     conformer_s' stacked leaf [17, 512, 2048] with per-entry (s, b) in
+     S1E3M7 and in S1E4M14 (the training driver's format).
      Kernel and plain version are timed with CUDA events (3 warm-ups,
-     median of 20, L2 flushed before each launch); ``pack`` and
-     ``fused_aggregate`` also by the profiler's device time alone; beside
+     median of 20, L2 flushed before each launch); ``dequantize``, ``pack``
+     and ``fused_aggregate`` also by the profiler's device time alone; beside
      ``dequant_matmul``, ``torch.matmul`` on the pre-decoded f32 weight
      ("matmul alone", not the same function), and its bound both ways:
      the tile path's TF32 passes over the tensor cores' rate, and f32
@@ -310,17 +319,22 @@ class Timer:
         cache flushed before each call: the card's time alone, where the host's
         time to launch may exceed it (small calls).  Each kernel ``fn``
         launches once a call; its mean is taken over the launches the profiler
-        recorded, and a shortfall is printed (records can be dropped)."""
+        recorded, and a shortfall is printed (records can be dropped; a
+        window in which it recorded none is measured again, twice at most)."""
         for _ in range(warmup):
             fn()
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                self._flush.zero_()
-                fn()
+        for _ in range(3):
             torch.cuda.synchronize()
-        kernels = [e for e in prof.key_averages()
-                   if e.device_time_total > 0 and "Fill" not in e.key]  # not the flush
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    self._flush.zero_()
+                    fn()
+                torch.cuda.synchronize()
+            kernels = [e for e in prof.key_averages()
+                       if e.device_time_total > 0 and "Fill" not in e.key]  # not the flush
+            if kernels:
+                break
+            print("  profiler: no device time recorded; measuring again")
         require(bool(kernels), "the profiler saw no device time")
         for e in kernels:
             if e.count != reps:
@@ -405,26 +419,67 @@ def check_quantize_stats(x, fmt, batch_axes, timer=None):
     return codes, out
 
 
+DQ_VARIANTS = {qk.DECODE_RUNTIME: "decode at run time", qk.DECODE_S1E3M7: "S1E3M7 compiled in",
+               qk.DECODE_S1E4M14: "S1E4M14 compiled in"}
+
+
+def nan_codes(codes: torch.Tensor, fmt: FloatFormat) -> torch.Tensor:
+    """A tensor like ``codes`` holding one NaN code everywhere."""
+    nan = (((1 << fmt.exp_bits) - 1) << fmt.mant_bits) | (1 << (fmt.mant_bits - 1))
+    return narrow(torch.full(codes.shape, nan, device=codes.device), fmt.container_dtype)
+
+
 def check_dequantize(codes, fmt, timer=None, batch_axes=0):
     """With ``batch_axes``, one (s, b) pair per stacked entry, shaped
-    ``[*stack, 1, ...]`` as a stacked ``CompressedVariable`` holds them."""
+    ``[*stack, 1, ...]`` as a stacked ``CompressedVariable`` holds them.  The
+    launch's variant must be the one ``kernel_variant`` states, and a second
+    launch, after one on all-NaN codes, must give the same bits."""
     lead = tuple(codes.shape[:batch_axes])
     shape = lead + (1,) * (codes.ndim - batch_axes) if batch_axes else ()
     g = torch.Generator(device="cuda").manual_seed(codes.numel())
     s = (1.0 + 0.05 * torch.randn(lead, generator=g, device="cuda")).reshape(shape)
     b = (0.01 * torch.randn(lead, generator=g, device="cuda")).reshape(shape)
+    plan = qk.dequantize_plan(codes, fmt, s)
+    require(plan["variant"] == qk.kernel_variant(fmt),
+            f"dequantize {fmt.name}: the kernel's variant {plan} is not kernel_variant's")
     got = qk.dequantize(codes, fmt, s, b)
+    qk.dequantize(nan_codes(codes, fmt), fmt, s, b)
+    again = qk.dequantize(codes, fmt, s, b)
     torch.cuda.synchronize()
     want = ref.ref_dequantize(codes, fmt, s, b)
     require(bit_equal(got, want), f"dequantize differs {fmt.name} {tuple(codes.shape)}")
+    require(bit_equal(got, again), f"dequantize {fmt.name} {tuple(codes.shape)}: two launches "
+            f"differ")
     fin = torch.isfinite(want)
-    out = dict(shape=list(codes.shape), fmt=fmt.name,
-               max_abs_err=(got[fin] - want[fin]).abs().max().item())
+    out = dict(shape=list(codes.shape), fmt=fmt.name, variant=DQ_VARIANTS[plan["variant"]],
+               vec=plan["vec"], same_bits=True,
+               max_abs_err=(got[fin] - want[fin]).abs().max().item() if fin.any() else 0.0)
     if timer:
         out.update(ms=timer(lambda: qk.dequantize(codes, fmt, s, b)),
+                   device_ms=timer.device(lambda: qk.dequantize(codes, fmt, s, b)),
                    plain_ms=timer(lambda: ref.ref_dequantize(codes, fmt, s, b)),
-                   bound_ms=bound_ms(codes.numel() * (fmt.container_bytes_per_value + 4)))
+                   bound_ms=bound_ms(codes.numel() * (fmt.container_bytes_per_value + 4)),
+                   blocks=plan["blocks"])
     return out
+
+
+def check_dequantize_decode(name: str) -> list:
+    """Every code of ``name``, inf and NaN included, through ``dequantize``
+    exactly as the plain version decodes it (b != 0): on 16-byte vectors
+    with one (s, b), as 16 stacked entries with one pair each, and one
+    element off the 16-byte grid (the scalar pass)."""
+    fmt = FloatFormat.parse(name)
+    # every code, repeated up to 256 of them for S1E2M3: 16 entries of whole vectors
+    c = narrow(torch.arange(max(1 << fmt.bits, 256), device="cuda") % (1 << fmt.bits),
+               fmt.container_dtype)
+    rows = []
+    for codes, batch_axes, vec in ((c, 0, True), (c.reshape(16, -1), 1, True),
+                                   (c[1:], 0, False)):
+        r = check_dequantize(codes, fmt, batch_axes=batch_axes)
+        require(r["vec"] == vec, f"decode check {name} {r['shape']}: expected "
+                f"{'vectors' if vec else 'scalars'}")
+        rows.append(dict(r, codes=int(codes.numel())))
+    return rows
 
 
 def check_pack_unpack(codes, width, timer=None):
@@ -737,6 +792,17 @@ def phase_kernels() -> dict:
         results["pack"].append(p)
         results["unpack"].append(u)
         del codes
+    # dequantize: every code of five formats, each in its variant; conformer_s'
+    # stacked leaf with per-entry (s, b) in S1E3M7 (engine, async) and in
+    # S1E4M14 (the training driver), timed
+    for name in ("S1E2M3", "S1E3M7", "S1E4M3", "S1E5M10", "S1E4M14"):
+        results["dequantize"] += check_dequantize_decode(name)
+    for fmt in (FMT, FloatFormat.parse("S1E4M14")):
+        x = _inputs(TRAIN_LEAF, fmt, seed=fmt.bits, specials=False)
+        codes = qk.quantize_stats(x, fmt, batch_axes=1)[0]
+        del x
+        results["dequantize"].append(check_dequantize(codes, fmt, timer, batch_axes=1))
+        del codes
     torch.cuda.empty_cache()
     stacked = check_stacked_mlp(timer)
     torch.cuda.empty_cache()
@@ -796,6 +862,11 @@ def phase_kernels() -> dict:
                       + (f" ({r['bound_by']}; f32 SIMT bound {r['f32_simt_bound_ms']:.4f} ms)"
                          f"  matmul alone {r['matmul_alone_ms']:.4f} ms"
                          if "matmul_alone_ms" in r else ""))
+    for r in results["dequantize"]:
+        print(f"  dequantize {r['fmt']} {r['shape']}: {r['variant']}, "
+              f"{'vectors' if r['vec'] else 'scalars'}, same bits twice {r['same_bits']}"
+              + (f", device {r['device_ms']:.4f} ms, {r['blocks']} blocks"
+                 if "device_ms" in r else ""))
     for r in results["fused_aggregate"]:
         print(f"  fused_aggregate {r['fmt']} {r['shape']} C={r['cohort']}: {r['variant']}, "
               f"{r['blocks']} blocks an entry, {'vectors' if r['vec'] else 'scalars'}, "

@@ -394,7 +394,10 @@ class AsyncRunner:
         self.buffer = self.buffer[self.acfg.buffer_goal:]
         staleness = np.asarray([self.version - e.base_version for e in entries], np.float32)
         w = flush_weights(staleness, self.acfg.decay, self.acfg.decay_mode)
-        stacked = simulate.stack_trees([e.model for e in entries])
+        stacked = None
+        for i, e in enumerate(entries):  # each upload dropped once in its row
+            stacked = simulate.stack_into(stacked, i, e.model, len(entries))
+            e.model = None
         self.storage = self._flush_fn(self.storage, stacked, w)
         del stacked
         self.version += 1

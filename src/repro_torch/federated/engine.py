@@ -211,9 +211,33 @@ def _alive_rows(alive: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 def mask_dead_rows(stacked, alive: torch.Tensor):
     """Zero dead clients' rows of a ``[C, ...]`` stack with ``where`` (NaN-safe
-    FedAvg: ``0·inf`` would poison the mean)."""
-    return tree_map(lambda x: torch.where(_alive_rows(alive, x), x, torch.zeros((), device=x.device)),
-                    stacked)
+    FedAvg: ``0·inf`` would poison the mean); a ``CompressedVariable``'s
+    codes, ``s`` and ``b`` alike, each in its own dtype."""
+
+    def f(x):
+        if is_compressed(x):
+            return CompressedVariable(f(x.codes), f(x.s), f(x.b), x.fmt)
+        return torch.where(_alive_rows(alive, x), x,
+                           torch.zeros((), dtype=x.dtype, device=x.device))
+
+    return tree_map(f, stacked)
+
+
+def zero_dead_rows_(stacked, alive: torch.Tensor):
+    """:func:`mask_dead_rows` in place, in the same bits (a dead row becomes
+    +0, NaN and inf included), without a second copy of the stack."""
+    dead = [i for i, ok in enumerate(alive.tolist()) if not ok]
+
+    def f(x):
+        if is_compressed(x):
+            for t in (x.codes, x.s, x.b):
+                f(t)
+        else:
+            for i in dead:
+                x[i].zero_()
+        return x
+
+    return tree_map(f, stacked)
 
 
 def apply_server_step(server_f32, mean_model, specs, omc: OMCConfig, server_lr: float):
@@ -282,7 +306,7 @@ def make_round_fn(family, cfg, specs, omc: OMCConfig, sim: SimConfig, spec: Coho
 
     def finish(server_f32, stacked, loss_c, alive):
         w, loss, n_alive = losses_and_weights(loss_c, alive)
-        mean_model = cohort_lib.aggregate_weighted(mask_dead_rows(stacked, alive), w)
+        mean_model = cohort_lib.aggregate_weighted(zero_dead_rows_(stacked, alive), w)
         return apply_server_step(server_f32, mean_model, specs, omc, sim.server_lr), loss, n_alive
 
     def finish_fused(storage, stacked, loss_c, alive):
@@ -294,7 +318,7 @@ def make_round_fn(family, cfg, specs, omc: OMCConfig, sim: SimConfig, spec: Coho
                     stack, srv.fmt, omc.pvt, n_stack_axes(spec_t, srv.codes))
                 return CompressedVariable(codes_c, s_c, b_c, srv.fmt)
             # unselected leaves keep the f32 mean: dead rows zeroed first
-            return torch.where(_alive_rows(alive, stack), stack, torch.zeros((), device=stack.device))
+            return zero_dead_rows_(stack, alive)
 
         encoded = tree_map_with_path(encode, specs, storage, stacked)
         return fused_server_step(storage, encoded, w, specs, omc, sim.server_lr), loss, n_alive
@@ -302,16 +326,19 @@ def make_round_fn(family, cfg, specs, omc: OMCConfig, sim: SimConfig, spec: Coho
     def round_fn(storage, ids_per_tier, alive, round_index: int):
         with torch.no_grad():
             server_f32 = decompress_tree(storage)
-        models, losses = [], []
+        # each client's model goes into its row of the cohort's stacks as
+        # soon as it is trained, so the cohort's models are held once
+        stacked, losses = None, []
+        n = sum(len(ids_t) for ids_t in ids_per_tier)
         for one, ids_t in zip(ones, ids_per_tier):
             for cid in ids_t.tolist():
                 batches = simulate.client_batches(data_fn, cid, round_index, sim.local_steps)
                 m, loss = one(server_f32, batches, round_index, cid)
-                models.append(m)
+                with torch.no_grad():
+                    stacked = simulate.stack_into(stacked, len(losses), m, n)
+                del m
                 losses.append(loss)
         with torch.no_grad():
-            stacked = simulate.stack_trees(models)
-            del models
             if fused_agg:
                 return finish_fused(storage, stacked, torch.stack(losses), alive)
             return finish(server_f32, stacked, torch.stack(losses), alive)

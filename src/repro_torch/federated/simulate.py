@@ -62,6 +62,35 @@ def stack_trees(trees):
     return tree_map(f, *trees)
 
 
+def stack_into(stacked, i: int, tree, n: int):
+    """Copy ``tree`` into row ``i`` of ``stacked``, the ``[n, ...]`` stacks
+    :func:`stack_trees` makes, and return them: the stacks are filled one
+    tree at a time, so the trees need not all live at once (each can be
+    dropped once copied).  With ``stacked`` None they are first allocated
+    from ``tree``, uninitialised until every row is copied.  The same bits
+    as :func:`stack_trees` once all ``n`` rows are in."""
+
+    def new(x):
+        return torch.empty((n,) + tuple(x.shape), dtype=x.dtype, device=x.device)
+
+    def alloc(x):
+        if is_compressed(x):
+            return CompressedVariable(new(x.codes), new(x.s), new(x.b), x.fmt)
+        return new(x)
+
+    def copy(st, x):
+        if is_compressed(st):
+            for k in ("codes", "s", "b"):
+                getattr(st, k)[i].copy_(getattr(x, k))
+        else:
+            st[i].copy_(x)
+        return st
+
+    if stacked is None:
+        stacked = tree_map(alloc, tree)
+    return tree_map(copy, stacked, tree)
+
+
 def client_view(params_f32, specs, omc: OMCConfig, round_index: int, client_id: int,
                 strategy=None, ste: bool = False):
     """The client's PPQ-masked quantize→dequantize(+PVT) view of ``params_f32``."""

@@ -45,6 +45,8 @@ _SIGNATURES = {
     "omc_pack_plan": (_I, [_LL, _I, _I, _P]),
     # x, codes, container_bytes, n, exp, mant, stream
     "omc_quantize": (_I, [_P, _P, _I, _LL, _I, _I, _P]),
+    # codes, out, n_per_entry, entries, container_bytes, exp, mant, plan[4]
+    "omc_dequantize_plan": (_I, [_P, _P, _LL, _I, _I, _I, _I, _P]),
     # codes, container_bytes, s, b, out, n_per_entry, entries, exp_bits, mant_bits, stream
     "omc_dequantize": (_I, [_P, _I, _P, _P, _P, _LL, _I, _I, _I, _P]),
     # x, codes, container_bytes, partials, sums, n_per_entry, entries, exp, mant, stream

@@ -4,7 +4,10 @@ Wrappers over ``csrc/quantize.cu`` (see its header for the design and the
 byte bounds).  Each wrapper checks device, dtype, contiguity and shape,
 allocates its outputs with ``torch.empty``, launches on the current stream
 and raises on a CUDA error.  They take CUDA tensors only; ``ops`` sends CPU
-tensors to the plain versions in ``ref``.
+tensors to the plain versions in ``ref``.  :func:`kernel_variant` states
+how ``dequantize`` decodes a format (``dequantize_variant`` in the source,
+which decides; :func:`dequantize_plan` reports the launch it makes, and the
+tests on the card hold the two against each other).
 
 Replaces the Pallas kernels ``repro/kernels/quantize.py::quantize``,
 ``::dequantize`` and ``::quantize_stats``.
@@ -12,14 +15,19 @@ Replaces the Pallas kernels ``repro/kernels/quantize.py::quantize``,
 
 from __future__ import annotations
 
+import ctypes
 import math
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.core.formats import FloatFormat
 
 from . import build
+
+DECODE_RUNTIME = 0  # decode.cuh's branch-free decode, the format read at run time
+DECODE_S1E3M7 = 1  # served and trained format compiled in: two u16 codes a word
+DECODE_S1E4M14 = 2  # the training driver's format compiled in (u32)
 
 
 def _require(t: torch.Tensor, name: str, dtype: torch.dtype, device: torch.device) -> None:
@@ -71,6 +79,30 @@ def quantize(x: torch.Tensor, fmt: FloatFormat) -> torch.Tensor:
                           x.numel(), fmt.exp_bits, fmt.mant_bits, _stream(dev))
     build.check(rc, "quantize")
     return codes
+
+
+def kernel_variant(fmt: FloatFormat) -> int:
+    """How ``dequantize`` decodes ``fmt``: ``DECODE_S1E3M7`` and
+    ``DECODE_S1E4M14`` compiled in, ``DECODE_RUNTIME`` for every other
+    format.  The rule of ``dequantize_variant`` in ``csrc/quantize.cu``,
+    which decides."""
+    compiled = {(3, 7): DECODE_S1E3M7, (4, 14): DECODE_S1E4M14}
+    return compiled.get((fmt.exp_bits, fmt.mant_bits), DECODE_RUNTIME)
+
+
+def dequantize_plan(codes: torch.Tensor, fmt: FloatFormat,
+                    s: Optional[torch.Tensor] = None) -> Dict[str, int]:
+    """The launch :func:`dequantize` makes for these arguments:
+    ``{variant, vec (16-byte vectors, else one code a step), idx32 (32-bit
+    indices), blocks}``, ``variant`` as :func:`kernel_variant` states it.
+    The output, fresh from ``torch.empty``, is 16-byte aligned; ``codes``'
+    own offset counts."""
+    entries = _entries(s, codes)
+    p = (ctypes.c_longlong * 4)()
+    build.check(build.load_library().omc_dequantize_plan(
+        codes.data_ptr(), 0, codes.numel() // entries, entries, fmt.container_bytes_per_value,
+        fmt.exp_bits, fmt.mant_bits, ctypes.addressof(p)), "dequantize plan")
+    return dict(variant=p[0], vec=bool(p[1]), idx32=bool(p[2]), blocks=p[3])
 
 
 def dequantize(codes: torch.Tensor, fmt: FloatFormat, s: Optional[torch.Tensor] = None,

@@ -456,6 +456,17 @@ def test_fused_aggregate_kernel_variant_rejects_cohorts(clients):
         agg.kernel_variant(FloatFormat.parse("S1E3M7"), clients)
 
 
+# the decode dequantize takes: the served and trained S1E3M7 and the
+# driver's S1E4M14 compiled in, every other format read at run time
+_DQ_VARIANTS = {name: qk.DECODE_RUNTIME for name in ZOO}
+_DQ_VARIANTS.update(S1E3M7=qk.DECODE_S1E3M7, S1E4M14=qk.DECODE_S1E4M14)
+
+
+@pytest.mark.parametrize("name", ZOO)
+def test_dequantize_kernel_variant_rule(name):
+    assert qk.kernel_variant(FloatFormat.parse(name)) == _DQ_VARIANTS[name]
+
+
 @pytest.mark.parametrize("width,dtype", [(1, torch.uint8), (6, torch.uint8), (8, torch.uint8),
                                          (11, torch.uint16), (16, torch.uint16),
                                          (3, torch.uint32), (19, torch.uint32),
@@ -576,6 +587,64 @@ def test_cuda_fused_aggregate_each_variant(cuda, name, entries, clients, m):
     agg.fused_aggregate(*args[:3], all_nan, *args[4:], 0.7, fmt, batch_axes=1)
     again = agg.fused_aggregate(*args, 0.7, fmt, batch_axes=1)
     assert bit_equal(codes, again[0]) and bit_equal(sums, again[1])
+
+
+def _every_code(fmt: FloatFormat, device, multiple: int = 1) -> torch.Tensor:
+    """Every code of ``fmt`` (inf and NaN included), zero-padded to a
+    multiple of ``multiple``, in its container."""
+    c = torch.arange(1 << fmt.bits, device=device)
+    pad = -c.numel() % multiple
+    return narrow(torch.cat([c, torch.zeros(pad, dtype=c.dtype, device=device)]),
+                  fmt.container_dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["S1E2M3", "S1E3M7", "S1E4M3", "S1E5M10", "S1E4M14"])
+@pytest.mark.parametrize("entries", [1, 16])
+def test_cuda_dequantize_every_code_each_variant(cuda, name, entries):
+    """Every code of the format, inf and NaN included, decoded by the
+    kernel's variant (kernel_variant's) on 16-byte vectors, with one (s, b)
+    or one pair per stacked entry, b != 0: the plain version's bits; and the
+    same bits from two launches with one on all-NaN codes between them."""
+    fmt = FloatFormat.parse(name)
+    codes = _every_code(fmt, cuda, multiple=16 * entries).reshape(entries, -1)
+    g = torch.Generator(device=cuda).manual_seed(entries)
+    s = (1 + 0.05 * torch.randn(entries, generator=g, device=cuda)).reshape(entries, 1)
+    b = (0.01 * torch.randn(entries, generator=g, device=cuda)).reshape(entries, 1)
+    if entries == 1:
+        codes, s, b = codes.reshape(-1), s.reshape(()), b.reshape(())
+    plan = qk.dequantize_plan(codes, fmt, s)
+    assert plan["variant"] == qk.kernel_variant(fmt) and plan["vec"]
+    got = qk.dequantize(codes, fmt, s, b)
+    nan_code = (((1 << fmt.exp_bits) - 1) << fmt.mant_bits) | (1 << (fmt.mant_bits - 1))
+    qk.dequantize(narrow(torch.full(codes.shape, nan_code, device=cuda), fmt.container_dtype),
+                  fmt, s, b)
+    again = qk.dequantize(codes, fmt, s, b)
+    assert bit_equal(got, ref.ref_dequantize(codes, fmt, s, b))
+    assert bit_equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["S1E2M3", "S1E3M7", "S1E4M14"])
+@pytest.mark.parametrize("shape,batch_axes,offset", [((1001,), 0, 0), ((1001,), 0, 1),
+                                                     ((3, 65), 1, 0), ((2, 3, 17), 2, 0),
+                                                     ((5, 32), 1, 1)], ids=str)
+def test_cuda_dequantize_unaligned_odd_tails(cuda, name, shape, batch_axes, offset):
+    """Odd tails in u8, u16 and u32: a single entry past its last whole
+    vector, stacks whose entries are no multiple of 16 codes, and codes one
+    element off the 16-byte grid (the scalar pass): the plain version's
+    bits."""
+    fmt = FloatFormat.parse(name)
+    n = math.prod(shape)
+    every = torch.arange(offset + n, device=cuda) % (1 << fmt.bits)
+    codes = narrow(every, fmt.container_dtype)[offset:].reshape(shape)
+    lead = shape[:batch_axes]
+    bshape = lead + (1,) * (len(shape) - batch_axes)
+    s = torch.linspace(0.9, 1.1, max(1, math.prod(lead)), device=cuda).reshape(bshape)
+    b = torch.linspace(-0.01, 0.01, max(1, math.prod(lead)), device=cuda).reshape(bshape)
+    aligned = codes.data_ptr() % 16 == 0 and (batch_axes == 0 or n // math.prod(lead) % 16 == 0)
+    assert qk.dequantize_plan(codes, fmt, s)["vec"] == aligned
+    assert bit_equal(qk.dequantize(codes, fmt, s, b), ref.ref_dequantize(codes, fmt, s, b))
 
 
 @pytest.mark.cuda
