@@ -171,9 +171,38 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
      history rows but the loss, losses within 1e-3, the same launches, trees
      within phase 7's gate.
 
+ 15. The FL sessions at full width (``api.session``): conformer_s, S1E3M7 with
+     PVT, ``CohortPlan(8, 4)``, each ``FLClient`` training 2 plain SGD steps
+     at lr 0.05 on 8 x 48-frame batches (autograd through ``conformer.loss``
+     on the card).  Two sync rounds (``begin_round``, ``run_round``,
+     ``ingest``, ``close_round``): every report arrives, round 1's delta is
+     smaller than its full payload and decodes to the full payload's tree
+     bit for bit, the download stays <= 60% of f32, the codec's
+     ``wire_bytes`` equals ``state_bytes_report``'s ``packed_bytes``.  Then a
+     second session with ``enable_async(4, decay=0.5)``: 8 check-ins, 2
+     flushes, one upload stale by a version, a client back with
+     ``held_version=0`` whose delta decodes to the state bit for bit; the
+     versions after each ingest, the history and the kept versions as the
+     protocol dictates.  Counters are zeroed around each round and each
+     flush's stretch, and every count must equal the one predicted from the
+     13 compressed leaves and the codec operations run (a ``quantize_stats``
+     and a ``dequantize`` a leaf per compress and decompress; ``pack`` and
+     ``unpack`` a leaf per payload, one more for each leaf sent as a delta
+     with changed codes, as each payload's manifest says).  Then
+     ``repro_torch.api.demo.main`` at its default configuration on the card
+     (``ServeSession`` after ``hot_swap`` runs ``dequant_matmul``).  Last, the
+     same protocol cut to 2 layers at full width, with a bit-exact client
+     update (a raw leaf times 0.9) from a model on the format's grid, on the
+     card and on the CPU: cohorts, payload lengths, traffic, the async
+     history and every part's launches equal, ``quantize_stats`` and
+     ``dequantize`` per part equal to full width's, codes equal (or trees
+     within phase 7's gate).  Prints seconds per round and per flush, ms per
+     full-payload encode and decode, payload bytes against f32 and the peak
+     device memory.
+
 Each phase's wall seconds are printed on a line of their own.  It then
 prints one JSON line describing each kernel (``launches_by_path`` has the
-main paths of phases 3, 5, 7, 9, 11 and 13) and, last, the line
+main paths of phases 3, 5, 7, 9, 11, 13 and 15) and, last, the line
 ``{"ok": true, "device": {...}}``.  f32 matmuls run in full f32: TF32 is
 switched off for matmuls and cuDNN.  Exits non-zero without a CUDA device.
 """
@@ -199,7 +228,8 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from repro_torch.api.session import ServeSession  # noqa: E402
+from repro_torch.api import codecs, demo, session  # noqa: E402
+from repro_torch.api.session import FLClient, FLSession, ServeSession  # noqa: E402
 from repro_torch.configs import conformer_s, qwen2_5_3b, recurrentgemma_2b  # noqa: E402
 from repro_torch.core import omc as omc_lib  # noqa: E402
 from repro_torch.core import prng  # noqa: E402
@@ -209,14 +239,15 @@ from repro_torch.core.policy import QuantizePolicy  # noqa: E402
 from repro_torch.core.store import (bit_equal, compress_variable, decompress_tree,  # noqa: E402
                                     is_compressed, pack_for_transport, tree_bytes_report,
                                     trees_bit_equal, unpack_from_transport)
-from repro_torch.core.tree import tree_items, tree_map  # noqa: E402
+from repro_torch.core.tree import tree_items, tree_map, tree_map_with_path  # noqa: E402
 from repro_torch.data.synthetic import make_frame_task  # noqa: E402
 from repro_torch.federated import accounting, async_engine, engine, simulate  # noqa: E402
 from repro_torch.federated import traces  # noqa: E402
 from repro_torch.federated.cohort import CohortPlan  # noqa: E402
 from repro_torch import checkpoint as ck  # noqa: E402
 from repro_torch.federated.round import make_round_fn  # noqa: E402
-from repro_torch.federated.state import compress_params, init_state  # noqa: E402
+from repro_torch.federated.state import (compress_params, init_state,  # noqa: E402
+                                         state_bytes_report)
 from repro_torch.kernels import agg  # noqa: E402
 from repro_torch.kernels import bitpack as bk  # noqa: E402
 from repro_torch.kernels import dequant_matmul as dm  # noqa: E402
@@ -286,6 +317,9 @@ ASYNC_DIR = ROOT / "build" / "async"  # phase 13's mid-buffer checkpoint
 ASYNC_SIM = simulate.SimConfig(local_steps=1, client_lr=0.1)
 ASYNC_FLUSHES = 3  # phase 13's straggler run
 ASYNC_STALENESS = np.asarray([0, 0, 1, 1, 2, 3, 5, 8], np.float32)  # phase 2's K = 8 buffer
+SESSION_PLAN = CohortPlan(num_clients=8, cohort_size=4)  # phase 15
+SESSION_ROUNDS, SESSION_BUFFER, SESSION_DECAY = 2, 4, 0.5
+SESSION_STEPS, SESSION_LR = 2, 0.05  # each client's local SGD
 
 
 def require(cond: bool, msg: str) -> None:
@@ -1674,6 +1708,329 @@ def phase_async_card_vs_cpu() -> tuple:
     return gap
 
 
+# ---------------------------------------------------------------------------
+# 15. the FL sessions at full width, card against CPU
+# ---------------------------------------------------------------------------
+
+
+class Expect:
+    """The launches a stretch of the session protocol should take, from the
+    number of compressed leaves and the codec operations it ran: per
+    ``compress_params`` one ``quantize_stats`` a compressed leaf, per
+    ``decompress_tree`` one ``dequantize`` a compressed leaf; per payload
+    encoded one ``pack`` a compressed leaf, and one more for each leaf sent
+    as a delta with changed codes; per payload decoded one ``unpack`` for
+    each compressed leaf sent whole or as a delta with changed codes (the
+    payload's manifest says which)."""
+
+    def __init__(self, n_comp: int, backend: str):
+        self.n, self.backend, self.want = n_comp, backend, {}
+
+    def _add(self, op: str, k: int) -> None:
+        key = f"{op}.{self.backend}"
+        self.want[key] = self.want.get(key, 0) + k
+
+    def compress(self) -> None:
+        self._add("quantize_stats", self.n)
+
+    def decompress(self) -> None:
+        self._add("dequantize", self.n)
+
+    def _leaves(self, blob: bytes):
+        leaves = [m for m in codecs.payload_manifest(blob) if m["kind"] == "omc"]
+        require(len(leaves) == self.n, f"a payload holds {len(leaves)} compressed leaves")
+        return leaves, sum(1 for m in leaves if m["mode"] == "delta" and m["nnz"])
+
+    def encode(self, blob: bytes) -> None:
+        leaves, changed = self._leaves(blob)
+        self._add("pack", len(leaves) + changed)
+
+    def decode(self, blob: bytes) -> None:
+        leaves, changed = self._leaves(blob)
+        self._add("unpack", sum(1 for m in leaves if m["mode"] == "full") + changed)
+
+    def take(self) -> dict:
+        out, self.want = {k: v for k, v in self.want.items() if v}, {}
+        return out
+
+
+def session_sgd(cfg, device):
+    """``FLClient.train_fn``: SESSION_STEPS plain SGD steps at SESSION_LR on
+    the client's frame batches (8 x 48 frames), autograd through
+    ``conformer.loss``."""
+    task = make_frame_task(d_in=cfg.d_in, n_classes=cfg.n_classes, seq_len=48, num_clients=8,
+                           device=str(device))
+    def train_fn(params, cid, r):
+        batches = [task.batch(cid, r, s, 8) for s in range(SESSION_STEPS)]
+        return simulate.sgd_steps(conformer, cfg, params, batches, SESSION_LR)[0]
+
+    return train_fn
+
+
+def session_exact(params, cid, r):
+    """A bit-exact client update: the first leaf times 0.9 (conformer's is the
+    raw ``blocks/attn_bias``), as the reference's session tests train."""
+    first = next(tree_items(params))[0]
+    return tree_map_with_path(lambda path, x: x * 0.9 if path == first else x, params)
+
+
+def session_protocol(cfg, device: str, init_params, train_fn) -> dict:
+    """Phase 15's protocol on ``device``: SESSION_ROUNDS sync rounds of
+    ``FLSession``/``FLClient`` at cohort 4 of 8, then a second session with
+    ``enable_async(4, decay=0.5)``: 8 check-ins and 2 flushes, client 4's
+    upload stale by one version, client 0 back with ``held_version=0`` for a
+    delta.  Counters are zeroed around each part (the init, each round, each
+    flush's stretch) and held to :class:`Expect`; returns the record."""
+    backend = "cuda" if device == "cuda" else "ref"
+    omc = OMCConfig.parse(FMT.name)
+    specs = conformer.param_specs(cfg)
+    rec = dict(parts={}, ids=[], lengths=[], round_s=[], flush_s=[])
+
+    def part(name: str, ex: Expect, t0: float) -> float:
+        session.sync(torch.device(device))
+        got, want = ops.launch_counts(), ex.take()
+        require(got == want, f"sessions {name} on {device}: launched {got}, predicted {want}")
+        rec["parts"][name] = got
+        return time.perf_counter() - t0
+
+    # the sync cycle
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    sess = FLSession(conformer, cfg, omc, plan=SESSION_PLAN, init_params=init_params,
+                     device=device)
+    n_comp = sum(is_compressed(v) for _, v in tree_items(sess.storage))
+    ex = Expect(n_comp, backend)
+    ex.compress()
+    part("init", ex, t0)
+    clients = {c: FLClient(c, conformer, cfg, omc, train_fn, device=device)
+               for c in range(SESSION_PLAN.num_clients)}
+    prev_full = None
+    for r in range(SESSION_ROUNDS):
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        ticket = sess.begin_round()
+        ex.encode(ticket.payload)
+        if ticket.delta_payload is not None:
+            ex.encode(ticket.delta_payload)
+        ups = []
+        for cid in ticket.client_ids:
+            took = ticket.issued_delta
+            up = clients[cid].run_round(ticket)
+            ex.decode(ticket.delta_payload if ticket.issued_delta > took else ticket.payload)
+            ex.decompress()
+            ex.compress()
+            ex.encode(up)
+            sess.ingest(cid, up)
+            ex.decode(up)
+            ex.decompress()
+            ups.append(len(up))
+        m = sess.close_round()
+        ex.decompress()
+        ex.compress()
+        rec["round_s"].append(part(f"round {r}", ex, t0))
+        require(m["reports"] == m["invited"] == SESSION_PLAN.cohort_size, f"round {r}: {m}")
+        rec["ids"].append(ticket.client_ids)
+        rec["lengths"].append([len(ticket.payload), len(ticket.delta_payload or b"")] + ups)
+        if ticket.delta_payload is not None:
+            require(len(ticket.delta_payload) < len(ticket.payload),
+                    f"round {r}: delta {len(ticket.delta_payload)} B, full {len(ticket.payload)} B")
+            base, _ = codecs.decode_payload(prev_full, device=device)
+            got, _ = codecs.decode_payload(ticket.delta_payload, base=base, device=device)
+            want, _ = codecs.decode_payload(ticket.payload, device=device)
+            require(trees_bit_equal(got, want), f"round {r}: the delta decodes to other bits")
+            del base, got, want
+        prev_full = ticket.payload
+    t = sess.traffic
+    require(t["down_bytes"] <= 0.60 * t["down_fp32_bytes"], f"download over 60% of f32: {t}")
+    wire, state_rep = codecs.payload_bytes_report(sess.storage), state_bytes_report(sess.storage)
+    require(wire["wire_bytes"] == state_rep["packed_bytes"], f"codec {wire}, state {state_rep}")
+    rec.update(traffic=dict(t), wire=wire, session=sess, full=prev_full, delta=ticket.delta_payload,
+               n_comp=n_comp)
+
+    # the async protocol, on a second session
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    asess = FLSession(conformer, cfg, omc, plan=SESSION_PLAN, init_params=init_params,
+                      device=device)
+    ex.compress()
+    part("async init", ex, t0)
+    asess.enable_async(SESSION_BUFFER, decay=SESSION_DECAY)
+    held, versions, ups, up_lengths = {}, [], {}, []
+    cached = set()  # versions whose full payload the session has encoded
+
+    def checkin(cid, held_version=None):
+        ticket = asess.checkin(cid, held_version=held_version)
+        if ticket.server_version not in cached:
+            cached.add(ticket.server_version)
+            ex.encode(ticket.payload)
+        if ticket.delta_payload is not None:
+            ex.encode(ticket.delta_payload)
+        return ticket
+
+    def work(cid, ticket):
+        """The loopback client: decode (a delta when it holds the base), train,
+        upload a delta against what it received."""
+        h = held.get(cid)
+        blob = ticket.payload_for(held_digest=codecs.tree_digest(h) if h is not None else 0)
+        tree, _ = codecs.decode_payload(blob, base=h, device=device)
+        ex.decode(blob)
+        held[cid] = tree
+        trained = train_fn(decompress_tree(tree), cid, ticket.server_version)
+        ex.decompress()
+        ups[cid] = codecs.encode_payload(compress_params(trained, specs, omc), base=tree,
+                                         round_index=ticket.server_version)
+        ex.compress()
+        ex.encode(ups[cid])
+
+    def ingest(cid):
+        v, up = asess.server_version, ups.pop(cid)
+        asess.ingest_async(cid, up)
+        ex.decode(up)
+        ex.decompress()
+        if asess.server_version > v:  # flushed: decode the storage, re-compress
+            ex.decompress()
+            ex.compress()
+        versions.append(asess.server_version)
+        up_lengths.append(len(up))
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    tickets = {c: checkin(c) for c in range(5)}
+    for c in range(5):
+        work(c, tickets[c])
+    for c in range(4):
+        ingest(c)
+    rec["flush_s"].append(part("flush 1", ex, t0))
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    tickets = {5: checkin(5), 6: checkin(6), 0: checkin(0, held_version=0)}
+    for c in (5, 6, 0):
+        work(c, tickets[c])
+    for c in (4, 5, 6, 0):  # client 4 downloaded version 0: stale by one
+        ingest(c)
+    rec["flush_s"].append(part("flush 2", ex, t0))
+    require(versions == [0, 0, 0, 1, 1, 1, 1, 2], f"server versions after each ingest {versions}")
+    require([h["version"] for h in asess.async_history] == [1, 2]
+            and [h["buffer"] for h in asess.async_history] == [SESSION_BUFFER] * 2
+            and [h["staleness_max"] for h in asess.async_history] == [0, 1],
+            f"async history {asess.async_history}")
+    back = tickets[0]
+    require(back.took_delta and len(back.delta_payload) < len(back.payload),
+            "the returning client took no smaller delta")
+    require(trees_bit_equal(held[0], asess._version_storages[1]),
+            "the returning client's delta decodes to other bits than version 1's state")
+    require(sorted(asess._version_storages) == [0, 1, 2], f"kept {sorted(asess._version_storages)}")
+    rec.update(versions=versions, history=asess.async_history, async_traffic=dict(asess.traffic),
+               async_lengths=up_lengths + [len(back.payload), len(back.delta_payload)],
+               async_session=asess)
+    return rec
+
+
+def _sum_counts(parts) -> dict:
+    total = {}
+    for c in parts:
+        for k, v in c.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def phase_sessions() -> dict:
+    """The FL sessions at full width on the card, the demo, then the same
+    protocol at 2 layers, card against CPU."""
+    cfg = TRAIN_CFG
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = conformer.init(prng.PRNGKey(0), cfg, "cuda")
+    t_phase = time.perf_counter()
+    rec = session_protocol(cfg, "cuda", params, session_sgd(cfg, "cuda"))
+    del params
+    sess, full = rec["session"], rec["full"]
+    enc_ms = min_ms(lambda: sess.server_payload())
+    dec_ms = min_ms(lambda: codecs.decode_payload(full, device="cuda"))
+    peak = torch.cuda.max_memory_allocated()
+    fp32 = rec["wire"]["fp32_bytes"]
+    t = rec["traffic"]
+    for name, c in rec["parts"].items():
+        print(f"    {name}: {c}")
+    print(f"  sessions, conformer_s ({rec['wire']['num_params']:,} parameters, {rec['n_comp']} "
+          f"compressed leaves), S1E3M7, cohort 4 of 8, {SESSION_STEPS} SGD steps a client: "
+          f"{[round(x, 2) for x in rec['round_s']]} s per sync round, "
+          f"{[round(x, 2) for x in rec['flush_s']]} s per flush (check-ins, client work and "
+          f"ingests included); launches as predicted from the payloads")
+    print(f"  payloads: full {len(full):,} B ({len(full) / fp32:.2%} of f32 {fp32:,} B), "
+          f"round-1 delta {len(rec['delta']):,} B ({len(rec['delta']) / fp32:.2%}); encode "
+          f"{enc_ms:.1f} ms, decode {dec_ms:.1f} ms (full payload, best of 3); traffic {t}, down "
+          f"{t['down_bytes'] / t['down_fp32_bytes']:.2%} / up {t['up_bytes'] / t['up_fp32_bytes']:.2%}"
+          f" of f32; async {rec['history']}; peak {peak / 1e9:.2f} GB")
+    del rec["session"], rec["async_session"], sess
+    torch.cuda.empty_cache()
+
+    # the loopback demo at its default configuration: the served transformer
+    # after hot_swap runs dequant_matmul
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    require(demo.main(["--device", "cuda", "--quiet"]) == 0, "the demo failed")
+    torch.cuda.synchronize()
+    demo_counts = ops.launch_counts()
+    require_launches(demo_counts, "demo", quantize_stats=None, dequantize=None, pack=None,
+                     unpack=None, dequant_matmul=None)
+    print(f"  demo (default config, 8 rounds): {time.perf_counter() - t0:.1f} s, launches "
+          f"{demo_counts}")
+    main_s = time.perf_counter() - t_phase
+
+    # card against CPU at 2 layers: the same protocol with a bit-exact client
+    # update, from a model already on the format's grid (the codes then stay
+    # put when the storage is decoded and re-compressed)
+    cut = dataclasses.replace(cfg, n_layers=2)
+    t0 = time.perf_counter()
+    grid = decompress_tree(compress_params(conformer.init(prng.PRNGKey(4), cut, "cuda"),
+                                           conformer.param_specs(cut), OMCConfig.parse(FMT.name)))
+    side = {}
+    for dev in ("cuda", "cpu"):
+        side[dev] = session_protocol(cut, dev, tree_map(lambda x, d=dev: x.to(d), grid),
+                                     session_exact)
+    card, host = side["cuda"], side["cpu"]
+    for k in ("ids", "lengths", "traffic", "versions", "history", "async_traffic",
+              "async_lengths"):
+        require(card[k] == host[k], f"card and CPU sessions differ in {k}: {card[k]} {host[k]}")
+    for name, c in card["parts"].items():
+        require(c == as_cuda(host["parts"][name]), f"{name}: card {c}, CPU {host['parts'][name]}")
+        for op in ("quantize_stats", "dequantize"):  # pack/unpack follow the data
+            require(rec["parts"][name].get(f"{op}.cuda") == c.get(f"{op}.cuda"),
+                    f"{name}: {op} at full width {rec['parts'][name]}, at 2 layers {c}")
+    gaps = {}
+    for which in ("session", "async_session"):
+        a, b = card[which].storage, host[which].storage
+        same = sum(bool(torch.equal(x.codes.cpu(), y.codes)) for (_, x), (_, y)
+                   in zip(tree_items(a), tree_items(b)) if is_compressed(x))
+        gaps[which] = (same, tree_gap(a, tree_map(lambda x: x.to("cuda"), b)))
+        require(same == card["n_comp"] or (gaps[which][1][0] <= TREE_MAX
+                                             and gaps[which][1][1] <= TREE_MEAN),
+                f"{which}: card and CPU storages differ {gaps[which]}")
+    print(f"  card against CPU, 2 layers at full width, bit-exact update: cohorts "
+          f"{card['ids']}, payload lengths {card['lengths']} and {card['async_lengths']}, traffic "
+          f"and async history equal; codes equal in {gaps['session'][0]} / "
+          f"{gaps['async_session'][0]} of {card['n_comp']} leaves (sync / async), trees max |d| "
+          f"{gaps['session'][1][0]:.3g} / {gaps['async_session'][1][0]:.3g}; launches equal "
+          f"({card['parts']}); {time.perf_counter() - t0:.1f} s")
+    del card["session"], card["async_session"], host["session"], host["async_session"]
+    return dict(counts=_sum_counts(list(rec["parts"].values()) + [demo_counts]),
+                round_s=rec["round_s"], flush_s=rec["flush_s"], encode_ms=enc_ms,
+                decode_ms=dec_ms, peak=peak, main_s=main_s)
+
+
+def min_ms(fn, reps: int = 3) -> float:
+    """Best wall ms of ``fn()`` over ``reps`` calls, the card synchronized."""
+    best = math.inf
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        best = min(best, (time.perf_counter() - t0) * 1e3)
+    return best
+
+
 def kernel_line(kernels: dict, counts_by_path: dict) -> dict:
     primary = dict(quantize_stats=list(EMBED), dequantize=list(MLP_SLICE), pack=list(EMBED),
                    unpack=list(EMBED), quantize=[COHORT, *TRAIN_LEAF],
@@ -1734,13 +2091,16 @@ def main() -> None:
     asynced = timed(13, "async runtime", phase_async)
     torch.cuda.empty_cache()
     timed(14, "async card against CPU", phase_async_card_vs_cpu)
+    torch.cuda.empty_cache()
+    sessions = timed(15, "FL sessions at full width", phase_sessions)
     print(f"all phases: {time.perf_counter() - t0:.1f} s")
     print(json.dumps(kernel_line(kernels, {"serve": served["report"]["launch_counts"],
                                            "serve_griffin": served_g["report"]["launch_counts"],
                                            "train": trained["counts"],
                                            "tables": tables["counts"],
                                            "train_driver": driver["counts"],
-                                           "async": asynced["counts"]})))
+                                           "async": asynced["counts"],
+                                           "sessions": sessions["counts"]})))
     print(json.dumps(dict(ok=True, device=dict(platform="gpu", kind=torch.cuda.get_device_name(0),
                                                count=torch.cuda.device_count()))))
 

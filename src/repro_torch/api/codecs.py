@@ -491,6 +491,14 @@ def peek_payload(data: bytes) -> PayloadInfo:
     return _parse_frame(data)[0]
 
 
+def payload_manifest(data: bytes) -> List[Dict[str, Any]]:
+    """The manifest's leaf records (path, kind, shape, mode and, for a delta
+    leaf, ``nnz``), framing and checksum validated, without decoding: what
+    tells how many ``pack``/``unpack`` launches the payload's encode and
+    decode take."""
+    return _parse_frame(data)[1]["leaves"]
+
+
 def header_base_digest(data: bytes) -> int:
     """Base digest straight from the header, with no checksum scan: for cheap
     delta-vs-full routing; integrity is still enforced at decode."""

@@ -206,3 +206,23 @@ def permutation(key: Key, n: int, device=None) -> torch.Tensor:
         x = x[order]
     return x
 
+
+
+def gumbel(key: Key, shape: Sequence[int] = (), device=None) -> torch.Tensor:
+    """``jax.random.gumbel(key, shape, float32)`` in jax's default ``"low"``
+    mode: ``-log(-log(u))`` with ``u`` uniform on ``[tiny, 1)``.  The uniform
+    is bit-exact; the two f32 logs are PyTorch's, which differ from XLA's by
+    an ulp on some arguments (ROADMAP C3)."""
+    tiny = torch.finfo(torch.float32).tiny
+    return _draw(key, shape, device,
+                 lambda w: -torch.log(-torch.log(_uniform(w, tiny, 1.0))), torch.float32)
+
+
+def categorical(key: Key, logits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.categorical(key, logits)`` over the last axis, with
+    replacement: ``argmax(gumbel(key, logits.shape) + logits)``, the first
+    maximum on a tie, as ``jnp.argmax`` takes it.  int64, shaped like
+    ``logits`` without its last axis, on its device.  A draw equals jax's
+    unless two candidates lie within the logs' rounding (ROADMAP C3)."""
+    g = gumbel(key, tuple(logits.shape), logits.device)
+    return torch.argmax(g + logits.to(torch.float32), dim=-1)

@@ -118,6 +118,27 @@ class SimConfig:
     server_lr: float = 1.0
 
 
+def sgd_steps(family, cfg, params, batches, lr: float) -> Tuple[Any, torch.Tensor]:
+    """One plain SGD step (``p − lr·g``, autograd through ``family.loss``) per
+    batch of ``batches``; returns (params, losses ``[steps]``)."""
+    losses = []
+    for batch in batches:
+        leaves = {}
+
+        def track(path, p):
+            p = p.detach().requires_grad_(True)
+            leaves[path] = p
+            return p
+
+        params = tree_map_with_path(track, params)
+        loss = family.loss(cfg, params, batch, IDENTITY_MAT)
+        grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+        with torch.no_grad():
+            params = tree_map_with_path(lambda path, p: p - lr * grads[path], params)
+        losses.append(loss.detach())
+    return params, torch.stack(losses)
+
+
 def make_client_fn(family, cfg, specs, omc: OMCConfig, sim: SimConfig, strategy=None,
                    ste: bool = False, takes_residual: Optional[bool] = None):
     """Single-client round body:
@@ -129,28 +150,9 @@ def make_client_fn(family, cfg, specs, omc: OMCConfig, sim: SimConfig, strategy=
     """
     check_unported(strategy, ste, ef=True if takes_residual else None)
 
-    def train(params, batches):
-        losses = []
-        for batch in batches:
-            leaves = {}
-
-            def track(path, p):
-                p = p.detach().requires_grad_(True)
-                leaves[path] = p
-                return p
-
-            params = tree_map_with_path(track, params)
-            loss = family.loss(cfg, params, batch, IDENTITY_MAT)
-            grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
-            with torch.no_grad():
-                params = tree_map_with_path(lambda path, p: p - sim.client_lr * grads[path],
-                                            params)
-            losses.append(loss.detach())
-        return params, torch.stack(losses)
-
     def client_update(server_f32, batches, round_index: int, client_id: int):
         eff = client_view(server_f32, specs, omc, round_index, client_id)
-        trained, losses = train(eff, batches)
+        trained, losses = sgd_steps(family, cfg, eff, batches, sim.client_lr)
         with torch.no_grad():
             out = client_view(trained, specs, omc, round_index, client_id)
         return out, losses.mean()

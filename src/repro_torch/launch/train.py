@@ -23,8 +23,9 @@ recompute) and re-compresses the updated leaves with ``quantize_stats``.
 ``--device cpu`` is given.  On the card it runs with
 ``torch.use_deterministic_algorithms(True)`` (and cuBLAS's deterministic
 workspace), so that a resumed run replays the uninterrupted one bit for
-bit.  The LM families (transformer, griffin) need the LM task, which waits
-for ``categorical`` and ``dirichlet`` draws (ROADMAP A3).
+bit.  The transformer family trains on the IID LM task (``--arch
+qwen2.5-3b``); its non-IID task waits for ``dirichlet`` (ROADMAP A3), and
+griffin, moe and xlstm wait for their ``forward``/``loss`` (ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -43,7 +44,7 @@ from repro_torch.api.session import sync
 from repro_torch.configs.registry import get_arch
 from repro_torch.core import prng
 from repro_torch.core.omc import OMCConfig
-from repro_torch.data.synthetic import make_frame_task
+from repro_torch.data.synthetic import make_frame_task, make_lm_task
 from repro_torch.federated.round import make_round_fn
 from repro_torch.federated.state import init_state, state_bytes_report
 from repro_torch.kernels import ops
@@ -80,10 +81,13 @@ def make_task(arch, cfg, seq: int, num_clients: int, iid: bool, seed: int, devic
         task = make_frame_task(d_in=cfg.d_in, n_classes=cfg.n_classes, seq_len=seq,
                                num_clients=num_clients, iid=iid, seed=seed, device=str(device))
         return task.batch
-    if fam in ("transformer", "moe", "xlstm", "griffin"):
+    if fam in ("moe", "xlstm", "griffin"):
         raise NotImplementedError(
-            f"{arch.ID} ({fam}) trains on the LM task, which is not ported yet: it needs "
-            f"prng.categorical and dirichlet (ROADMAP A3)")
+            f"{arch.ID} ({fam}) has no forward/loss in the port yet (ROADMAP A10)")
+    if fam == "transformer":
+        task = make_lm_task(vocab=min(cfg.vocab, 4096), seq_len=seq, num_clients=num_clients,
+                            iid=iid, seed=seed, device=str(device))
+        return task.batch
     raise SystemExit(f"train driver supports LM/conformer tasks, not {fam}")
 
 

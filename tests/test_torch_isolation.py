@@ -99,6 +99,27 @@ def test_async_runtime_without_a_card_raises_instead_of_using_the_cpu(monkeypatc
             prng.PRNGKey(0), num_clients=2, flushes=1)
 
 
+def test_sessions_without_a_card_raise_instead_of_using_the_cpu(monkeypatch):
+    from repro_torch.api import demo
+    from repro_torch.api.session import FLClient, FLSession, ServeSession
+    from repro_torch.core.omc import OMCConfig
+    from repro_torch.models import transformer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = transformer.TransformerConfig(n_layers=1, d_model=16, n_heads=2, n_kv_heads=1,
+                                        d_ff=32, vocab=32)
+    omc = OMCConfig.parse("S1E3M7")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        FLSession(transformer, cfg, omc)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        FLClient(0, transformer, cfg, omc, lambda p, c, r: p)
+    payload = FLSession(transformer, cfg, omc, device="cpu").server_payload()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServeSession.from_payload(transformer, cfg, payload)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        demo.main(["--smoke"])
+
+
 def test_unported_archs_and_families_name_the_roadmap():
     assert get_arch("qwen2.5-3b").ID == "qwen2.5-3b"
     with pytest.raises(KeyError, match="ROADMAP"):
