@@ -83,7 +83,9 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
      forward pass, no plain version run, payload ratio <= 0.35.
   6. Card against CPU for griffin: its storage cut to 5 layers (the first
      super block and the two extra recurrent blocks) at full width, prefill
-     and 2 decode steps, as in phase 4.
+     and 1 decode step (cut from 2 to keep the script within its time
+     limit: the CPU side decodes the 256,000 x 2560 tied head once a
+     forward pass), as in phase 4.
   7. Federated training at full width through the engine
      (``engine.run_training_vectorized``, ``engine.run_round_vectorized``):
      conformer_s (17 layers, d 512), random weights from a seed on the card,
@@ -136,12 +138,17 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
  12. Card against CPU for the round: ``make_round_fn`` with ``fedavg(1.0)``
      on conformer_s cut to 2 layers at full width (S1E4M14, a frame batch
      8 x 48; 2 rounds) and on qwen2.5-3b cut to 2 layers at full width (d
-     2048, vocab 151,936, tied head; S1E3M7, a 4 x 32 ``prng.randint``
-     batch; 1 round, cut from 2 to keep the script under 900 s: its CPU
+     2048, vocab 151,936, tied head; S1E3M7, a 4 x 32 batch of the non-IID
+     LM task, ``make_lm_task(vocab=4096, seq_len=32, iid=False)``, drawn on
+     the card; 1 round, cut from 2 to keep the script under 900 s: its CPU
      side is the script's largest cost), from one state each, on the card
-     (kernels) and on the CPU (plain versions): losses within rtol 1e-4,
-     trees within phase 7's gate; the card's checkpoint restores on the CPU
-     to the same bits.
+     (kernels) and on the CPU (plain versions), both on the card's batch:
+     losses within rtol 1e-4, trees within phase 7's gate; the card's
+     checkpoint restores on the CPU to the same bits.  The same LM batch is
+     drawn on the CPU too: at most 1 in 1000 tokens and labels differ (the
+     count printed), the client's 4096-entry Dirichlet draw takes the same
+     rejection path on both sides, and ``client_logits`` agree within the
+     base's 4 ulp a side plus the Dirichlet gate carried through the log.
  13. The async runtime at full width (``federated.async_engine.AsyncRunner``),
      under ``torch.use_deterministic_algorithms(True)``: phase 7's model,
      task and format, 1 local step at lr 0.1.  A degenerate trace (8
@@ -199,10 +206,30 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
      within phase 7's gate).  Prints seconds per round and per flush, ms per
      full-payload encode and decode, payload bytes against f32 and the peak
      device memory.
+ 16. The non-IID path at full width (``data.partition``): phase 7's model,
+     task, cohort and format, through ``engine.run_training_vectorized``
+     with ``fused_agg=True`` over ``make_partitioned_batch_fn``.
+     ``DirichletPartition(alpha=0.1)`` for 2 rounds of 2 local steps: losses
+     finite, 13 ``fused_aggregate`` launches a round, ``quantize_stats`` and
+     ``dequantize`` in every round (counts read after each round), no plain
+     version; the mean over the sampled clients of each client's largest
+     source share at least 0.4 (printed; IID gives 1/16); each sampled
+     client's 16-entry Dirichlet draw takes the same rejection path on the
+     card as on the CPU.  ``ShardPartition(2)``
+     for 1 round: every source drawn is one of the client's two.
+     ``DomainPartition(2)`` for 1 round of 1 local step: odd clients'
+     labels are exactly the argmax under domain 1's probe, even clients'
+     under domain 0's.  For each run, every batch the cohort drew is drawn
+     again on the card and on the CPU: sources equal, frames within 4 ulp
+     of max(|x|, 1), label flips counted and printed, at most 1 in 1000.
+     Then ``examples_torch/cohort_scenarios.py --smoke`` (its four
+     scenarios) and ``examples_torch/quickstart.py`` (10 rounds) on the
+     card, each with its launch counts printed: ``quantize_stats`` and
+     ``dequantize`` launched, no plain version.
 
 Each phase's wall seconds are printed on a line of their own.  It then
 prints one JSON line describing each kernel (``launches_by_path`` has the
-main paths of phases 3, 5, 7, 9, 11, 13 and 15) and, last, the line
+main paths of phases 3, 5, 7, 9, 11, 13, 15 and 16) and, last, the line
 ``{"ok": true, "device": {...}}``.  f32 matmuls run in full f32: TF32 is
 switched off for matmuls and cuDNN.  Exits non-zero without a CUDA device.
 """
@@ -212,6 +239,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import importlib
+import importlib.util
 import json
 import math
 import os
@@ -240,7 +268,9 @@ from repro_torch.core.store import (bit_equal, compress_variable, decompress_tre
                                     is_compressed, pack_for_transport, tree_bytes_report,
                                     trees_bit_equal, unpack_from_transport)
 from repro_torch.core.tree import tree_items, tree_map, tree_map_with_path  # noqa: E402
-from repro_torch.data.synthetic import make_frame_task  # noqa: E402
+from repro_torch.data.partition import (DirichletPartition, DomainPartition,  # noqa: E402
+                                        ShardPartition, make_partitioned_batch_fn)
+from repro_torch.data.synthetic import make_frame_task, make_lm_task  # noqa: E402
 from repro_torch.federated import accounting, async_engine, engine, simulate  # noqa: E402
 from repro_torch.federated import traces  # noqa: E402
 from repro_torch.federated.cohort import CohortPlan  # noqa: E402
@@ -320,6 +350,7 @@ ASYNC_STALENESS = np.asarray([0, 0, 1, 1, 2, 3, 5, 8], np.float32)  # phase 2's 
 SESSION_PLAN = CohortPlan(num_clients=8, cohort_size=4)  # phase 15
 SESSION_ROUNDS, SESSION_BUFFER, SESSION_DECAY = 2, 4, 0.5
 SESSION_STEPS, SESSION_LR = 2, 0.05  # each client's local SGD
+NONIID_ROUNDS = 2  # phase 16's Dirichlet run
 
 
 def require(cond: bool, msg: str) -> None:
@@ -984,20 +1015,21 @@ def phase_serve_griffin() -> dict:
     return served
 
 
-def card_vs_cpu(run: str, family, cfg, cut) -> float:
-    """Prefill and 2 decode steps of ``cut`` on the card (kernels) and on the
-    CPU (plain versions); the largest logit difference must be <= 1e-3."""
+def card_vs_cpu(run: str, family, cfg, cut, decode_steps: int = 2) -> float:
+    """Prefill and ``decode_steps`` decode steps of ``cut`` on the card
+    (kernels) and on the CPU (plain versions); the largest logit difference
+    must be <= 1e-3."""
     gpu = ServeSession(family, cfg, cut)
     cpu = ServeSession(family, cfg, tree_map(lambda x: x.to("cpu"), cut))
     g = torch.Generator(device="cuda").manual_seed(2)
     toks = torch.randint(0, cfg.vocab, (4, 32), generator=g, device="cuda")
 
     def steps(sess, tokens, pick=None):
-        """The logits of prefill and 2 decode steps, on the host; the decode
-        steps take ``pick``'s tokens (else their own argmax)."""
+        """The logits of prefill and the decode steps, on the host; the
+        decode steps take ``pick``'s tokens (else their own argmax)."""
         c, lg = sess.prefill(dict(tokens=tokens), sess.init_cache(4, 64))
         out = [lg.cpu()]
-        for i in range(2):
+        for i in range(decode_steps):
             tok = (pick[i] if pick else torch.argmax(out[-1][:, -1], dim=-1))[:, None]
             c, lg = sess.decode_step(c, tok.to(tokens.device))
             out.append(lg.cpu())
@@ -1005,7 +1037,7 @@ def card_vs_cpu(run: str, family, cfg, cut) -> float:
 
     card = steps(gpu, toks)
     again = steps(gpu, toks)  # the whole path twice in one process: the same bits
-    picks = [torch.argmax(lg[:, -1], dim=-1) for lg in card[:2]]
+    picks = [torch.argmax(lg[:, -1], dim=-1) for lg in card[:decode_steps]]
     host = steps(cpu, toks.cpu(), picks)
     diffs = [(lg - lc).abs().max().item() for lg, lc in zip(card, host)]
     worst = max(diffs)
@@ -1039,7 +1071,9 @@ def phase_griffin_card_vs_cpu(sess: ServeSession) -> float:
                              for part, leaves in st["super_blocks"].items()})
     cfg5 = dataclasses.replace(GCFG, n_layers=5)
     require((cfg5.n_super, cfg5.n_extra_rec) == (1, GCFG.n_extra_rec), "griffin cut")
-    return card_vs_cpu("recurrentgemma-2b, 5 layers", griffin, cfg5, cut)
+    # one decode step: the CPU side decodes the 256,000 x 2560 tied head in
+    # plain PyTorch once a forward pass, and the script's time limit is fixed
+    return card_vs_cpu("recurrentgemma-2b, 5 layers", griffin, cfg5, cut, decode_steps=1)
 
 
 # ---------------------------------------------------------------------------
@@ -1448,13 +1482,60 @@ def phase_round_card_vs_cpu() -> dict:
     conf = round_card_vs_cpu("conformer_s", conformer, ccfg, "S1E4M14", task.batch(0, 0, 0, 8), 2)
     torch.cuda.empty_cache()
     qcfg = dataclasses.replace(CFG, n_layers=2)
-    toks = prng.randint(prng.fold_in(prng.PRNGKey(3), 1), (4, 33), 0, qcfg.vocab, "cuda")
+    lm = lm_batch_card_vs_cpu()
     # 1 round: the CPU side (the plain versions on the 311 M-value
     # embedding) is the script's largest cost, cut to keep it under 900 s
-    qwen = round_card_vs_cpu("qwen2.5-3b", transformer, qcfg, "S1E3M7",
-                             dict(tokens=toks[:, :-1], labels=toks[:, 1:]), 1)
+    qwen = round_card_vs_cpu("qwen2.5-3b", transformer, qcfg, "S1E3M7", lm.pop("batch"), 1)
     torch.cuda.empty_cache()
-    return dict(conformer_s=conf, qwen=qwen)
+    return dict(conformer_s=conf, qwen=qwen, lm_batch=lm)
+
+
+def lm_batch_card_vs_cpu(client: int = 1) -> dict:
+    """Phase 12's qwen batch: the non-IID LM task (vocab 4096, 32 tokens,
+    Dirichlet(0.3) per client) drawn on the card, 4 rows of ``client``;
+    the same batch drawn on the CPU must agree in all but at most 1 in 1000
+    tokens and labels, the client's Dirichlet draw must take the same
+    rejection path on both (iteration counts equal), and ``client_logits``
+    must agree within the base's 4 ulp a side plus the Dirichlet gate of
+    tests/test_torch_partition.py carried through the log."""
+    out = {}
+    for dev in ("cuda", "cpu"):
+        task = make_lm_task(vocab=4096, seq_len=32, iid=False, device=dev)
+        sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+        sync()
+        t0 = time.perf_counter()
+        batch = task.batch(client, 0, 0, 4)
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        kc = prng.fold_in(prng.PRNGKey(task.seed + 1), client)
+        lg, iters = prng.loggamma(kc, torch.full((4096,), task.part.alpha), device=dev,
+                                  return_iterations=True)
+        out[dev] = dict(batch=batch, ms=ms, iters=iters.cpu(), loggamma=lg.cpu(),
+                        bias=task.client_bias(client).cpu(),
+                        logits=task.client_logits(client).cpu())
+    card, host = out["cuda"], out["cpu"]
+    flips = sum(int((card["batch"][k].cpu() != host["batch"][k]).sum())
+                for k in ("tokens", "labels"))
+    total = 2 * host["batch"]["tokens"].numel()
+    iter_diff = int((card["iters"] != host["iters"]).sum())
+    eps = torch.finfo(torch.float32).eps
+    scale = 16 * eps * max(host["loggamma"].abs().max().item(), 1.0)
+    bias_err = (card["bias"] - host["bias"]).abs()
+    bias_tol = scale + 2 * eps * host["bias"].abs()
+    logit_err = (card["logits"] - host["logits"]).abs()
+    logit_tol = bias_tol[None, :] + 1.5 * 8 * 2.0 ** -20 + eps * host["logits"].abs()
+    print(f"  non-IID LM batch (vocab 4096, 4 x 32, client {client}): drawn in "
+          f"{card['ms']:.1f} ms on the card, {host['ms']:.1f} ms on the CPU; "
+          f"{flips} of {total} tokens and labels differ; dirichlet iterations differ in "
+          f"{iter_diff} of 4096 (max {int(card['iters'].max())}); client_logits max |d| "
+          f"{logit_err.max().item():.3g}, bias max |d| {bias_err.max().item():.3g}")
+    require(flips * 1000 <= total, f"non-IID LM batch: {flips} of {total} tokens differ")
+    require(iter_diff == 0, f"non-IID LM task: {iter_diff} dirichlet entries took another path")
+    require(bool((bias_err <= bias_tol).all()), "non-IID LM task: client bias card vs CPU")
+    require(bool((logit_err <= logit_tol).all()), "non-IID LM task: client_logits card vs CPU")
+    b = card["batch"]
+    require(b["tokens"].device.type == "cuda" and b["tokens"].shape == (4, 32), "LM batch")
+    return dict(batch=b, flips=flips, total=total, card_ms=card["ms"], cpu_ms=host["ms"])
 
 
 # ---------------------------------------------------------------------------
@@ -2019,6 +2100,159 @@ def phase_sessions() -> dict:
                 decode_ms=dec_ms, peak=peak, main_s=main_s)
 
 
+# ---------------------------------------------------------------------------
+# 16. the non-IID path at full width
+# ---------------------------------------------------------------------------
+
+
+def _recording(data_fn, calls: list):
+    """``data_fn`` that records each ``(client, round, step)`` it draws."""
+
+    def fn(c, r, s):
+        calls.append((int(c), int(r), int(s)))
+        return data_fn(c, r, s)
+
+    return fn
+
+
+def _round_windows(marks: list) -> list:
+    """The launches between consecutive launch counts in ``marks``."""
+    return [{k: b.get(k, 0) - a.get(k, 0) for k in b if b.get(k, 0) != a.get(k, 0)}
+            for a, b in zip(marks, marks[1:])]
+
+
+def noniid_batches_card_vs_cpu(name: str, card_fn, host_fn, calls) -> dict:
+    """The cohort clients' batches, drawn again on the card and on the CPU:
+    sources equal, frames within 4 ulp of max(|x|, 1), labels flipped in at
+    most 1 in 1000 frames."""
+    flips = total = 0
+    worst = 0.0
+    for c, r, st in calls:
+        src_card, src_host = card_fn.sources(c, r, st).cpu(), host_fn.sources(c, r, st)
+        require(torch.equal(src_card, src_host), f"{name}: client {c} sources card vs CPU")
+        b, h = card_fn(c, r, st), host_fn(c, r, st)
+        ulp = torch.finfo(torch.float32).eps * h["frames"].abs().clamp(min=1.0)
+        worst = max(worst, ((b["frames"].cpu() - h["frames"]).abs() / ulp).max().item())
+        flips += int((b["labels"].cpu() != h["labels"]).sum())
+        total += h["labels"].numel()
+    print(f"  {name}: {len(calls)} batches card vs CPU: sources equal, frames within "
+          f"{worst:.2f} ulp, {flips} of {total} labels differ")
+    require(worst <= 4.0, f"{name}: frames differ by {worst} ulp")
+    require(flips * 1000 <= total, f"{name}: {flips} of {total} labels differ")
+    return dict(worst_ulp=worst, flips=flips, total=total)
+
+
+def phase_noniid() -> dict:
+    """Phase 7's configuration on partitioned data: Dirichlet(0.1) for
+    ``NONIID_ROUNDS`` fused rounds, 2 shards a client for 1, 2 domains for 1
+    (1 local step); then the two examples on the card."""
+    cfg = TRAIN_CFG
+    omc = OMCConfig.parse(FMT.name)
+    spec = engine.CohortSpec(CohortPlan(num_clients=16, cohort_size=COHORT, failure_rate=0.25))
+    key = prng.PRNGKey(0)
+    params = conformer.init(key, cfg, "cuda")
+    task = make_frame_task(d_in=cfg.d_in, n_classes=cfg.n_classes, seq_len=256, num_clients=16)
+    host_task = dataclasses.replace(task, device="cpu")
+    parts, counts = {}, []
+
+    def train(name, part, rounds, local_steps=2):
+        card_fn = make_partitioned_batch_fn(task, part, 8)
+        calls = []
+        sim = simulate.SimConfig(local_steps=local_steps, client_lr=0.1)
+        ops.reset_launch_counts()
+        marks = [{}]  # the counts after each round (its log line); round 0's window
+        t0 = time.perf_counter()  # also holds the storage's initial compress
+        _, history = engine.run_training_vectorized(
+            conformer, cfg, omc, sim, spec, _recording(card_fn, calls), key, rounds,
+            init_params=params, fused_agg=True, eval_every=1,
+            log=lambda _: marks.append(ops.launch_counts()))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = ops.launch_counts()
+        windows = _round_windows(marks)
+        require(len(windows) == rounds, f"{name}: {len(windows)} rounds drew batches")
+        require_launches(got, name, fused_aggregate=13 * rounds)
+        for i, w in enumerate(windows):
+            require_launches(w, f"{name} round {i}", quantize_stats=None, dequantize=None)
+        for h in history:
+            require(math.isfinite(h["loss"]) and 0 < h["loss"] < 20, f"{name}: bad loss {h}")
+        clients = sorted({c for c, _, _ in calls})
+        print(f"  {name}: {rounds} fused round(s) of {local_steps} local step(s), "
+              f"{wall / rounds:.2f} s a round, clients {clients}, launches {got}")
+        for h in history:
+            print(f"    {h}")
+        counts.append(got)
+        host_fn = make_partitioned_batch_fn(host_task, part, 8)
+        parts[name] = dict(round_s=wall / rounds, history=history, counts=got, clients=clients,
+                           batches=noniid_batches_card_vs_cpu(name, card_fn, host_fn, calls))
+        return card_fn, host_fn, calls, clients
+
+    # (a) Dirichlet(0.1): real skew, the same draws and rejection paths on both sides
+    part = DirichletPartition(alpha=0.1)
+    card_fn, _, _, clients = train("dirichlet(0.1)", part, NONIID_ROUNDS)
+    shares = {c: card_fn.weights(c).max().item() for c in clients}
+    mean_share = sum(shares.values()) / len(shares)
+    print(f"  dirichlet(0.1): largest source share per sampled client "
+          f"{ {c: round(v, 3) for c, v in shares.items()} }, mean {mean_share:.3f} "
+          f"(IID: {1 / 16:.4f})")
+    require(mean_share >= 0.4, f"dirichlet(0.1): mean largest share {mean_share:.3f} < 0.4")
+    iter_diff = 0
+    for c in clients:
+        kc = prng.fold_in(prng.fold_in(prng.PRNGKey(task.seed + 7), part.seed), c)
+        alpha = torch.full((16,), part.alpha)
+        w_card, it_card = prng.dirichlet(kc, alpha, device="cuda", return_iterations=True)
+        w_host, it_host = prng.dirichlet(kc, alpha, device="cpu", return_iterations=True)
+        iter_diff += int((it_card.cpu() != it_host).sum())
+        require(torch.equal(w_card.cpu(), card_fn.weights(c).cpu()), "weights cache")
+    print(f"  dirichlet(0.1): the sampled clients' dirichlet iterations differ card vs CPU in "
+          f"{iter_diff} of {16 * len(clients)} entries")
+    require(iter_diff == 0, f"dirichlet: {iter_diff} entries took another rejection path")
+
+    # (b) 2 shards a client: every source drawn is one of the client's two
+    card_fn, _, calls, _ = train("shards(2)", ShardPartition(2), 1)
+    for c, r, st in calls:
+        held = set(torch.nonzero(card_fn.weights(c)).flatten().tolist())
+        drawn = set(card_fn.sources(c, r, st).tolist())
+        require(len(held) == 2 and drawn <= held, f"shards: client {c} drew {drawn} of {held}")
+
+    # (c) 2 domains: odd clients are labelled by domain 1's probe, even by domain 0's
+    card_fn, _, calls, _ = train("domains(2)", DomainPartition(2), 1, local_steps=1)
+    c_ = task.context
+    routed = 0
+    for c, r, st in calls:
+        b = card_fn(c, r, st)
+        padded = torch.nn.functional.pad(b["frames"], (0, 0, c_, c_))
+        windows = torch.cat([padded[:, i:i + task.seq_len] for i in range(2 * c_ + 1)], -1)
+        want = torch.argmax(windows @ task.probe(c % 2), dim=-1).to(torch.int32)
+        other = torch.argmax(windows @ task.probe(1 - c % 2), dim=-1).to(torch.int32)
+        require(torch.equal(b["labels"], want), f"domains: client {c}'s labels")
+        require(not torch.equal(b["labels"], other), f"domains: client {c} not routed")
+        routed += c % 2
+    print(f"  domains(2): {len(calls)} batches labelled by their domain's probe, {routed} of "
+          f"them by domain 1's")
+
+    # (d) the examples, on the card
+    examples = {}
+    for script, argv in (("cohort_scenarios", ["--smoke"]), ("quickstart", [])):
+        spec_ = importlib.util.spec_from_file_location(f"_ex_{script}",
+                                                       ROOT / "examples_torch" / f"{script}.py")
+        mod = importlib.util.module_from_spec(spec_)
+        spec_.loader.exec_module(mod)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc = mod.main(argv + ["--device", "cuda"])
+        torch.cuda.synchronize()
+        got = ops.launch_counts()
+        examples[script] = dict(s=time.perf_counter() - t0, counts=got)
+        print(f"  examples_torch/{script}.py {' '.join(argv)}: {examples[script]['s']:.1f} s, "
+              f"launches {got}")
+        require(rc == 0, f"{script} exited {rc}")
+        require_launches(got, script, quantize_stats=None, dequantize=None)
+        counts.append(got)
+    return dict(parts=parts, mean_share=mean_share, examples=examples,
+                counts=_sum_counts(counts))
+
+
 def min_ms(fn, reps: int = 3) -> float:
     """Best wall ms of ``fn()`` over ``reps`` calls, the card synchronized."""
     best = math.inf
@@ -2093,6 +2327,8 @@ def main() -> None:
     timed(14, "async card against CPU", phase_async_card_vs_cpu)
     torch.cuda.empty_cache()
     sessions = timed(15, "FL sessions at full width", phase_sessions)
+    torch.cuda.empty_cache()
+    noniid = timed(16, "non-IID path at full width", phase_noniid)
     print(f"all phases: {time.perf_counter() - t0:.1f} s")
     print(json.dumps(kernel_line(kernels, {"serve": served["report"]["launch_counts"],
                                            "serve_griffin": served_g["report"]["launch_counts"],
@@ -2100,7 +2336,8 @@ def main() -> None:
                                            "tables": tables["counts"],
                                            "train_driver": driver["counts"],
                                            "async": asynced["counts"],
-                                           "sessions": sessions["counts"]})))
+                                           "sessions": sessions["counts"],
+                                           "noniid": noniid["counts"]})))
     print(json.dumps(dict(ok=True, device=dict(platform="gpu", kind=torch.cuda.get_device_name(0),
                                                count=torch.cuda.device_count()))))
 

@@ -22,7 +22,7 @@ synthetic frames, a model's random init) pass the device they feed.
 from __future__ import annotations
 
 import math
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -182,16 +182,16 @@ def erf_inv(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x.abs() == 1.0, x * torch.finfo(torch.float32).max, out)
 
 
+def _normal_words(w: torch.Tensor) -> torch.Tensor:
+    u = _uniform(w, -(1.0 - 2.0**-24), 1.0)  # f32 nextafter(-1, 0)
+    return erf_inv(u) * torch.tensor(math.sqrt(2), dtype=torch.float32, device=u.device)
+
+
 def normal(key: Key, shape: Sequence[int] = (), device=None) -> torch.Tensor:
     """``jax.random.normal(key, shape, float32)``: ``sqrt(2)·erf_inv(u)`` with
     ``u`` uniform on ``[nextafter(-1, 0), 1)``.  The uniform is bit-exact;
     the result is within 4 ulp of jax's (see :func:`erf_inv`)."""
-
-    def fn(w):
-        u = _uniform(w, -(1.0 - 2.0**-24), 1.0)  # f32 nextafter(-1, 0)
-        return erf_inv(u) * torch.tensor(math.sqrt(2), dtype=torch.float32, device=u.device)
-
-    return _draw(key, shape, device, fn, torch.float32)
+    return _draw(key, shape, device, _normal_words, torch.float32)
 
 
 def permutation(key: Key, n: int, device=None) -> torch.Tensor:
@@ -218,11 +218,153 @@ def gumbel(key: Key, shape: Sequence[int] = (), device=None) -> torch.Tensor:
                  lambda w: -torch.log(-torch.log(_uniform(w, tiny, 1.0))), torch.float32)
 
 
-def categorical(key: Key, logits: torch.Tensor) -> torch.Tensor:
-    """``jax.random.categorical(key, logits)`` over the last axis, with
-    replacement: ``argmax(gumbel(key, logits.shape) + logits)``, the first
-    maximum on a tie, as ``jnp.argmax`` takes it.  int64, shaped like
-    ``logits`` without its last axis, on its device.  A draw equals jax's
-    unless two candidates lie within the logs' rounding (ROADMAP C3)."""
+def categorical(key: Key, logits: torch.Tensor,
+                shape: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """``jax.random.categorical(key, logits, shape=shape)`` over the last
+    axis, with replacement: ``argmax(gumbel(key, shape + logits.shape[-1:]) +
+    logits)``, the first maximum on a tie, as ``jnp.argmax`` takes it.
+    ``shape`` (default: ``logits.shape[:-1]``) must end in the logits' batch
+    shape; jax draws ``shape=(B,)`` from 1-d logits exactly as it draws from
+    ``logits.expand(B, n)``.  int64 of ``shape`` on the logits' device.  A
+    draw equals jax's unless two candidates lie within the logs' rounding
+    (ROADMAP C3)."""
+    if shape is not None:
+        logits = logits.expand(*shape, logits.shape[-1])
     g = gumbel(key, tuple(logits.shape), logits.device)
     return torch.argmax(g + logits.to(torch.float32), dim=-1)
+
+
+def exponential(key: Key, shape: Sequence[int] = (), device=None) -> torch.Tensor:
+    """``jax.random.exponential(key, shape, float32)``: ``-log1p(-u)``.  The
+    uniform is bit-exact; the ``log1p`` is PyTorch's (ROADMAP C3)."""
+    return _draw(key, shape, device, lambda w: -torch.log1p(-_uniform(w, 0.0, 1.0)),
+                 torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# Gamma and Dirichlet draws: jax's Marsaglia-Tsang sampler, every element at once
+# ---------------------------------------------------------------------------
+#
+# jax draws each element of a gamma sample under its own key (``split(key,
+# n)``, row-major) with a rejection loop (``jax._src.random._gamma_one``).
+# Here the keys of all elements are two int64 word tensors (``threefry2x32``
+# takes tensor keys as it takes tensor counters), and the loop runs on the
+# elements still active until none is.
+
+
+def _split_keys(keys, num: int = 2):
+    """``split`` of every key of a batch: ``num`` pairs of word tensors."""
+    return [threefry2x32(keys, 0, i) for i in range(num)]
+
+
+def _word0(keys) -> torch.Tensor:
+    """Word 0 of each key's stream: ``bits(key, ())`` of every key."""
+    y0, y1 = threefry2x32(keys, 0, 0)
+    return y0 ^ y1
+
+
+def _fma(a: torch.Tensor, b: torch.Tensor, c) -> torch.Tensor:
+    """f32 ``a·b + c`` rounded once, as XLA on the CPU contracts it (the
+    product is exact in float64)."""
+    return (a.double() * b.double() + c).float()
+
+
+def _x_and_v(x_keys, c: torch.Tensor):
+    """jax's inner loop: ``x = normal(split(k)[1], ())``, ``v = 1 + x·c``,
+    ``k = split(k)[0]``, until ``v > 0``."""
+    k0, k1 = x_keys[0].clone(), x_keys[1].clone()
+    x, v = torch.empty_like(c), torch.empty_like(c)
+    j = torch.arange(c.numel(), device=c.device)
+    while j.numel():
+        nxt, sub = _split_keys((k0[j], k1[j]))
+        xj = _normal_words(_word0(sub))
+        vj = _fma(xj, c[j], 1.0)
+        x[j], v[j], k0[j], k1[j] = xj, vj, nxt[0], nxt[1]
+        j = j[vj <= 0]
+    return x, v
+
+
+def _gamma_batch(keys, alpha: torch.Tensor, log_space: bool):
+    """jax's ``_gamma_one`` on every element of the flat f32 ``alpha`` under
+    its key of ``keys``; returns (samples, iterations of the outer loop).
+
+    Where it can differ from jax: the normals (within 4 ulp, ``erf_inv``) and
+    the f32 ``log``/``log1p`` (PyTorch's; XLA's differ by an ulp on some
+    arguments, ROADMAP C3).  The fused multiply-adds XLA contracts are
+    emulated (:func:`_fma`).  A rejection decision that flips sends that
+    element down another key chain, so a flip gives a wholly different
+    sample: the tests count them.
+    """
+    dev = alpha.device
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)  # noqa: E731
+    boost = alpha >= 1
+    a = torch.where(boost, alpha, alpha + 1)
+    d = a - f32(1.0 / 3.0)
+    c = f32(1.0 / 3.0) / torch.sqrt(d)
+    (k0, k1), subkey = _split_keys(keys)
+    k0, k1 = k0.clone(), k1.clone()
+    V = torch.ones_like(alpha)
+    iters = torch.zeros(alpha.shape, dtype=torch.int32, device=dev)
+    i = torch.arange(alpha.numel(), device=dev)  # the elements not yet accepted
+    while i.numel():
+        nxt, x_key, u_key = _split_keys((k0[i], k1[i]), 3)
+        x, v = _x_and_v(x_key, c[i])
+        Xi, Vi = x * x, v * v * v
+        U = _uniform(_word0(u_key), 0.0, 1.0)
+        k0[i], k1[i], V[i] = nxt[0], nxt[1], Vi
+        iters[i] += 1
+        squeeze = U >= _fma(f32(-0.0331), Xi * Xi, 1.0)
+        rest = torch.log(U) >= Xi * 0.5 + d[i] * ((1.0 - Vi) + torch.log(Vi))
+        i = i[squeeze & rest]
+    u = _uniform(_word0(subkey), 0.0, 1.0)
+    if log_space:
+        log_u = torch.log1p(-u)  # -exponential(subkey)
+        log_boost = torch.where(boost | (log_u == 0), f32(0.0), log_u * (f32(1.0) / alpha))
+        return torch.log(d) + torch.log(V) + log_boost, iters
+    boost_f = torch.where(boost, f32(1.0), torch.pow(1.0 - u, f32(1.0) / alpha))
+    return d * V * boost_f, iters
+
+
+def _gamma(key: Key, a, shape, device, log_space: bool):
+    a = torch.as_tensor(a, dtype=torch.float32, device=device)
+    shape = tuple(a.shape) if shape is None else tuple(int(s) for s in shape)
+    a = torch.broadcast_to(a, shape).reshape(-1)
+    n = a.numel()
+    idx = torch.arange(n, dtype=torch.int64, device=a.device)
+    keys = threefry2x32(key, idx >> 32, idx & _M32)  # split(key, n), row-major
+    out, iters = _gamma_batch(keys, a, log_space)
+    return out.reshape(shape), iters.reshape(shape)
+
+
+def gamma(key: Key, a, shape: Optional[Sequence[int]] = None, device=None):
+    """``jax.random.gamma(key, a, shape, float32)``: Marsaglia-Tsang, one key
+    per element (see :func:`_gamma_batch`)."""
+    return _gamma(key, a, shape, device, log_space=False)[0]
+
+
+def loggamma(key: Key, a, shape: Optional[Sequence[int]] = None, device=None,
+             return_iterations: bool = False):
+    """``jax.random.loggamma``: the log of :func:`gamma`'s sample taken in
+    log space, ``log d + log V + log1p(-u)/a`` (the boost only where
+    ``a < 1``), as jax computes it.  With ``return_iterations``, also each
+    element's count of rejection-loop iterations (int32)."""
+    out, iters = _gamma(key, a, shape, device, log_space=True)
+    return (out, iters) if return_iterations else out
+
+
+def dirichlet(key: Key, alpha, shape: Optional[Sequence[int]] = None, device=None,
+              return_iterations: bool = False):
+    """``jax.random.dirichlet(key, alpha, shape, float32)``:
+    ``softmax(loggamma(key, alpha, shape + alpha.shape[-1:]))`` over the last
+    axis, the softmax as jax writes it (``exp(x - max) / sum``).  Where a
+    value underflows to a subnormal, XLA on the CPU flushes it to 0 and
+    PyTorch keeps it (ROADMAP C1)."""
+    alpha = torch.as_tensor(alpha, dtype=torch.float32, device=device)
+    if alpha.dim() < 1:
+        raise ValueError(f"dirichlet requires alpha.ndim >= 1, got {alpha.dim()}")
+    batch = tuple(alpha.shape[:-1]) if shape is None else tuple(int(s) for s in shape)
+    lg, iters = _gamma(key, alpha, batch + tuple(alpha.shape[-1:]), alpha.device,
+                       log_space=True)
+    e = torch.exp(lg - lg.amax(dim=-1, keepdim=True))
+    out = e / e.sum(dim=-1, keepdim=True)
+    return (out, iters) if return_iterations else out

@@ -1,7 +1,8 @@
 """Synthetic learnable tasks (port of ``repro.data.synthetic``).
 
   * :class:`LMTask` — token streams from a random first-order Markov chain
-    over the vocab (IID clients only here).
+    over the vocab.  Non-IID clients re-weight the transition rows with a
+    client-specific Dirichlet draw (the "partition by speaker" analogue).
   * :class:`FrameTask` — synthetic ASR: frame embeddings whose labels are the
     argmax of a fixed random linear probe over a local context window;
     non-IID clients add a per-speaker bias vector to their frames.
@@ -12,9 +13,9 @@ within 4 ulp of them (XLA's ``erf_inv`` polynomial, with another library's
 ``log1p``).  Frame labels are an argmax and LM tokens a Gumbel argmax
 (``prng.categorical``), so they equal the reference's unless two candidates
 lie within that rounding (ROADMAP C3); a token that flips sends that row's
-chain its own way from there.  The non-IID LM task (a Dirichlet draw per
-client) and the partitioners (``repro.data.partition``) are not ported yet
-(ROADMAP A3).
+chain its own way from there.  The Dirichlet draw is jax's gamma rejection
+sampler (``prng.dirichlet``), where a flipped decision would give that entry
+another sample (also C3).
 """
 
 from __future__ import annotations
@@ -50,11 +51,6 @@ class LMTask:
     temperature: float = 1.5
     device: str = "cuda"  # where batches are drawn
 
-    def __post_init__(self):
-        if not self.part.iid:
-            raise NotImplementedError("the non-IID LM task re-weights each client's transitions "
-                                      "with a dirichlet draw, which is not ported yet (ROADMAP A3)")
-
     @functools.lru_cache(maxsize=2)
     def _logits(self) -> torch.Tensor:
         """Transition logits ``[vocab, vocab]``, row = current token.  Cached:
@@ -62,8 +58,22 @@ class LMTask:
         k = prng.PRNGKey(self.seed)
         return prng.normal(k, (self.vocab, self.vocab), self.device) * self.temperature
 
+    @functools.lru_cache(maxsize=64)
+    def client_bias(self, client_id: int) -> torch.Tensor:
+        """The non-IID client's re-weighting of next-token preferences,
+        ``log(dirichlet(fold_in(PRNGKey(seed + 1), client), alpha) + 1e-8)``,
+        f32 ``[vocab]``.  Cached: a function of the task and the client."""
+        kc = prng.fold_in(prng.PRNGKey(self.seed + 1), int(client_id))
+        alpha = torch.full((self.vocab,), self.part.alpha, dtype=torch.float32)
+        return torch.log(prng.dirichlet(kc, alpha, device=self.device) + 1e-8)
+
     def client_logits(self, client_id) -> torch.Tensor:
-        return self._logits()  # IID: every client shares the chain
+        """``[vocab, vocab]`` transition logits of ``client_id``: the shared
+        chain, plus the client's bias on every row when non-IID."""
+        base = self._logits()
+        if self.part.iid:
+            return base  # every client shares the chain
+        return base + self.client_bias(int(client_id))[None, :]
 
     def batch(self, client_id, round_index, step, batch_size: int):
         return lm_batch(self, client_id, round_index, step, batch_size)
@@ -73,15 +83,19 @@ def lm_batch(task: LMTask, client_id, round_index, step, batch_size: int):
     """Sample ``[B, S+1]`` Markov tokens -> ``{"tokens", "labels"}``, int32
     ``[B, S]`` each on ``task.device`` (next-token LM).  The reference's
     ``lax.scan`` over ``seq_len`` steps is a loop here, each step one
-    ``categorical`` draw under its own key of ``split(kseq, seq_len)``."""
-    logits = task.client_logits(client_id)
+    ``categorical`` draw under its own key of ``split(kseq, seq_len)``.  The
+    rows of :meth:`LMTask.client_logits` a step needs are formed as they are
+    drawn (the same sums), so no client's ``[vocab, vocab]`` is held."""
+    base = task._logits()
+    bias = None if task.part.iid else task.client_bias(int(client_id))
     k = prng.fold_in(prng.fold_in(prng.fold_in(prng.PRNGKey(task.seed + 2), int(client_id)),
                                   int(round_index)), int(step))
     k0, kseq = prng.split(k)
     tok = prng.randint(k0, (batch_size,), 0, task.vocab, task.device)
     seq = [tok]
     for kk in prng.split(kseq, task.seq_len):
-        tok = prng.categorical(kk, logits[tok])
+        rows = base[tok] if bias is None else base[tok] + bias
+        tok = prng.categorical(kk, rows)
         seq.append(tok)
     seq = torch.stack(seq, dim=1).to(torch.int32)  # [B, S+1]
     return dict(tokens=seq[:, :-1], labels=seq[:, 1:])

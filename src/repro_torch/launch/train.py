@@ -23,9 +23,10 @@ recompute) and re-compresses the updated leaves with ``quantize_stats``.
 ``--device cpu`` is given.  On the card it runs with
 ``torch.use_deterministic_algorithms(True)`` (and cuBLAS's deterministic
 workspace), so that a resumed run replays the uninterrupted one bit for
-bit.  The transformer family trains on the IID LM task (``--arch
-qwen2.5-3b``); its non-IID task waits for ``dirichlet`` (ROADMAP A3), and
-griffin, moe and xlstm wait for their ``forward``/``loss`` (ROADMAP A10).
+bit.  The transformer family trains on the LM task (``--arch qwen2.5-3b``),
+IID or, with ``--non-iid``, with each client's transitions re-weighted by
+a Dirichlet draw; griffin, moe and xlstm wait for their ``forward``/``loss``
+(ROADMAP A10).
 """
 
 from __future__ import annotations

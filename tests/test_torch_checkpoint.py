@@ -234,17 +234,19 @@ def test_driver_without_a_card_raises(monkeypatch):
 
 
 def test_driver_lm_families_wait_for_the_lm_task():
-    """The transformer family trains on the IID LM task (qwen2.5-3b's smoke
-    config); griffin still waits for its forward/loss (ROADMAP A10), and the
-    non-IID LM task for ``dirichlet`` (ROADMAP A3)."""
-    report = train.run(train.parse_args(["--arch", "qwen2.5-3b", "--smoke", "--device", "cpu",
-                                         "--rounds", "2", "--batch", "2", "--seq", "16",
-                                         "--quiet"]))
+    """The transformer family trains on the LM task (qwen2.5-3b's smoke
+    config), IID and, with ``--non-iid``, on Dirichlet-skewed clients, whose
+    losses differ from the IID run's; griffin still waits for its
+    forward/loss (ROADMAP A10)."""
+    argv = ["--arch", "qwen2.5-3b", "--smoke", "--device", "cpu", "--rounds", "2", "--batch",
+            "2", "--seq", "16", "--quiet"]
+    report = train.run(train.parse_args(argv))
     assert report["arch"] == "qwen2.5-3b" and len(report["losses"]) == 2
     assert all(np.isfinite(report["losses"])) and report["losses"][0] > 0
     assert report["round_launches"][0].get("quantize_stats.ref", 0) > 0
     with pytest.raises(NotImplementedError, match="ROADMAP A10"):
         train.run(train.parse_args(["--arch", "recurrentgemma-2b", "--smoke", "--device", "cpu"]))
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        train.run(train.parse_args(["--arch", "qwen2.5-3b", "--smoke", "--device", "cpu",
-                                    "--non-iid"]))
+    skewed = train.run(train.parse_args(argv + ["--non-iid"]))
+    assert len(skewed["losses"]) == 2 and all(np.isfinite(skewed["losses"]))
+    assert skewed["round_launches"][0].get("quantize_stats.ref", 0) > 0
+    assert skewed["losses"] != report["losses"]

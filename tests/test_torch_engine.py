@@ -9,6 +9,9 @@ cohort, drop count and wire ledgers equal; losses within 1e-3; decompressed
 server trees within max |d| 6e-3 (one S1E3M7 step on a boundary element)
 and mean |d| 1e-3 per leaf.  The PPQ masks, cohorts and survival masks are
 bit-exact (tests/test_torch_prng.py), so any difference is f32 arithmetic.
+The last test holds one round on Dirichlet(0.1) data (``data/partition.py``)
+to the same gate; it runs after the reference's first engine run in this
+module, whose compiled eager ops it reuses.
 """
 
 import jax
@@ -18,6 +21,7 @@ import torch
 
 from repro.core.omc import OMCConfig as JOMC
 from repro.core.store import decompress_tree as jdecompress
+from repro.data import partition as jpart
 from repro.data.synthetic import make_frame_task as jmake_frame_task
 from repro.federated import accounting as jaccounting
 from repro.federated import engine as jengine
@@ -29,6 +33,7 @@ from repro_torch.core import prng
 from repro_torch.core.omc import OMCConfig
 from repro_torch.core.store import decompress_tree, is_compressed
 from repro_torch.core.tree import tree_items
+from repro_torch.data import partition as tpart
 from repro_torch.data.synthetic import make_frame_task
 from repro_torch.federated import accounting, engine, simulate
 from repro_torch.federated.cohort import CohortPlan
@@ -170,3 +175,26 @@ def test_masked_upload_tree_matches_reference(init):
             np.testing.assert_allclose(leaf.b.numpy(), np.asarray(want[path].b), atol=1e-5)
         else:
             np.testing.assert_array_equal(leaf.numpy(), np.asarray(want[path]))
+
+
+def test_engine_round_on_dirichlet_data_matches_reference(init):
+    """cohort 8 of 16, failure rate 0.25, S1E3M7, 2 local steps, 1 round."""
+    jstorage, jhist = jengine.run_training_vectorized(
+        jcf, JCFG, JOMC.parse("S1E3M7"), jsim(),
+        jengine.CohortSpec(JPlan(16, 8, failure_rate=0.25)),
+        jpart.make_partitioned_batch_fn(JTASK, jpart.DirichletPartition(alpha=0.1), 4),
+        jax.random.PRNGKey(0), num_rounds=1, eval_every=100, init_params=init[0])
+    storage, hist = engine.run_training_vectorized(
+        cf, CFG, OMCConfig.parse("S1E3M7"), sim(),
+        engine.CohortSpec(CohortPlan(16, 8, failure_rate=0.25)),
+        tpart.make_partitioned_batch_fn(TASK, tpart.DirichletPartition(alpha=0.1), 4),
+        prng.PRNGKey(0), num_rounds=1, eval_every=100, init_params=torch_params(init))
+    for k in ("round", "cohort", "dropped", "down_bytes", "up_bytes"):
+        assert hist[0][k] == jhist[0][k], (k, hist, jhist)
+    assert abs(hist[0]["loss"] - jhist[0]["loss"]) < 1e-3, (hist, jhist)
+    want = _leaves(jdecompress(jstorage))
+    got = _decoded(storage)
+    assert sorted(got) == sorted(want)
+    for path, x in got.items():
+        d = np.abs(x - want[path])
+        assert d.max() <= 6e-3 and d.mean() <= 1e-3, (path, d.max(), d.mean())

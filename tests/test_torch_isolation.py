@@ -1,8 +1,8 @@
 """The PyTorch port stands alone: no JAX, nothing of the reference package.
 
-``src/repro_torch``, ``chip_smoke.py`` and ``benchmarks_torch`` import
-``torch``, ``numpy`` and the standard library only; their entry points run
-on the card unless the CPU is asked for.
+``src/repro_torch``, ``chip_smoke.py``, ``benchmarks_torch`` and
+``examples_torch`` import ``torch``, ``numpy`` and the standard library
+only; their entry points run on the card unless the CPU is asked for.
 """
 
 import ast
@@ -43,7 +43,24 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
     proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert len(_modules()) >= 25
+    assert len(_modules()) >= 25 and "repro_torch.data.partition" in _modules()
+
+
+def test_examples_import_no_jax_and_no_reference():
+    """Each ``examples_torch`` script, imported (not run), loads no JAX."""
+    code = ("import importlib.util, pathlib, sys\n"
+            f"for p in sorted(pathlib.Path({str(ROOT / 'examples_torch')!r}).glob('*.py')):\n"
+            "    spec = importlib.util.spec_from_file_location('ex_' + p.stem, p)\n"
+            "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r})\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert len(list((ROOT / "examples_torch").glob("*.py"))) == 4
 
 
 def _imported_roots(path: Path):
@@ -55,7 +72,8 @@ def _imported_roots(path: Path):
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-                         + sorted((ROOT / "benchmarks_torch").glob("*.py")),
+                         + sorted((ROOT / "benchmarks_torch").glob("*.py"))
+                         + sorted((ROOT / "examples_torch").glob("*.py")),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_source_imports_jax_or_reference(path):
     bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
@@ -126,3 +144,29 @@ def test_unported_archs_and_families_name_the_roadmap():
         get_arch("mixtral-8x7b")
     with pytest.raises(KeyError, match="ROADMAP"):
         get_family("moe")
+
+
+def test_partitioned_data_without_a_card_raises_instead_of_using_the_cpu(monkeypatch):
+    from repro_torch.data.partition import DirichletPartition, make_partitioned_batch_fn
+    from repro_torch.data.synthetic import make_frame_task
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    task = make_frame_task(d_in=4, n_classes=8, seq_len=8, num_clients=4)  # device="cuda"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_partitioned_batch_fn(task, DirichletPartition(), 2)
+    assert make_partitioned_batch_fn(make_frame_task(d_in=4, n_classes=8, seq_len=8,
+                                                     num_clients=4, device="cpu"),
+                                     DirichletPartition(), 2)(1, 0, 0)["labels"].shape == (2, 8)
+
+
+@pytest.mark.parametrize("script", ["quickstart", "cohort_scenarios"])
+def test_examples_without_a_card_raise_instead_of_using_the_cpu(monkeypatch, script):
+    import importlib.util
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    path = ROOT / "examples_torch" / f"{script}.py"
+    spec = importlib.util.spec_from_file_location(f"_noc_{script}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        mod.main(["--smoke"])

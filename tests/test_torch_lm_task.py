@@ -1,6 +1,6 @@
 """PyTorch port vs the JAX reference: ``prng.gumbel`` / ``prng.categorical``,
-the IID LM task, and the entry points built on it (the loopback demo, the
-``api_wire`` benchmark).
+the IID and non-IID LM task, and the entry points built on it (the loopback
+demo, the ``api_wire`` benchmark).
 
 ``categorical`` is ``argmax(gumbel + logits)``.  The uniform under the
 Gumbel noise is bit-exact; its two f32 logs are PyTorch's, which differ from
@@ -78,8 +78,38 @@ def test_lm_batch_tokens_match_reference():
 
 
 def test_non_iid_lm_task_names_the_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        syn.make_lm_task(vocab=VOCAB, iid=False, device="cpu")
+    """The non-IID task (ROADMAP A3, ported): each client's bias is
+    ``log(dirichlet + 1e-8)``, held within the dirichlet gate of
+    tests/test_torch_partition.py carried through the log (16 eps at the
+    scale of the client's largest |loggamma|, plus 2 ulp of the log); the
+    logits add the base's 4 ulp; tokens and labels: 0 flips on the sample."""
+    jtask = jsyn.make_lm_task(vocab=VOCAB, seq_len=16, num_clients=4, iid=False, alpha=0.3)
+    task = syn.make_lm_task(vocab=VOCAB, seq_len=16, num_clients=4, iid=False, alpha=0.3,
+                            device="cpu")
+    eps = float(np.finfo(np.float32).eps)
+    for cid in range(4):
+        kc = jax.random.fold_in(jax.random.PRNGKey(1), cid)
+        alpha = jnp.full((VOCAB,), 0.3)
+        lg = np.asarray(jax.random.loggamma(kc, alpha)).astype(np.float64)
+        want_bias = np.asarray(jnp.log(jax.random.dirichlet(kc, alpha) + 1e-8)).astype(np.float64)
+        bias = task.client_bias(cid).numpy()
+        atol = 16 * eps * max(np.abs(lg).max(), 1.0) + 2 * np.spacing(
+            np.abs(want_bias).astype(np.float32))
+        assert np.all(np.abs(bias - want_bias) <= atol)
+        got, want = task.client_logits(cid).numpy(), np.asarray(jtask.client_logits(cid))
+        assert got.shape == (VOCAB, VOCAB) and got.dtype == np.float32
+        assert np.all(np.abs(got - want) <= atol[None, :] + 1.5 * 4 * 2.0 ** -20
+                      + np.spacing(np.abs(want)))
+    iid = syn.make_lm_task(vocab=VOCAB, seq_len=16, num_clients=4, device="cpu")
+    assert not torch.equal(task.client_logits(1), iid.client_logits(1))
+    flips = total = 0
+    for cid, r, step in [(0, 0, 0), (1, 0, 1), (3, 2, 0), (2, 7, 1)]:
+        jb, b = jtask.batch(cid, r, step, 2), task.batch(cid, r, step, 2)
+        for k in ("tokens", "labels"):
+            assert b[k].shape == (2, 16) and b[k].dtype == torch.int32
+            flips += int((b[k].numpy() != np.asarray(jb[k])).sum())
+        total += 2 * b["tokens"].numel()
+    assert flips == 0, f"{flips} of {total} tokens differ"
 
 
 def test_demo_smoke_writes_its_record_under_bench_torch():

@@ -1,5 +1,5 @@
-"""The package-level names of ``core``, ``api`` and ``obs``: the port's against
-the reference's.
+"""The package-level names of ``core``, ``api``, ``data`` and ``obs``: the
+port's against the reference's.
 
 Each package's public names (its ``__all__``; the reference's ``api`` has
 none, so its public non-module names) are compared.  The port must define
@@ -26,7 +26,8 @@ def _public(mod):
             if not n.startswith("_") and not isinstance(v, types.ModuleType)}
 
 
-@pytest.mark.parametrize("pkg, missing", [("core", A7), ("api", set()), ("obs", A9)])
+@pytest.mark.parametrize("pkg, missing", [("core", A7), ("api", set()), ("data", set()),
+                                          ("obs", A9)])
 def test_package_names_match_the_reference(pkg, missing):
     ref = importlib.import_module(f"repro.{pkg}")
     port = importlib.import_module(f"repro_torch.{pkg}")
