@@ -73,9 +73,10 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
      ``dequant_matmul`` and 2 ``dequantize`` launches per forward pass, every
      serve kernel launched, no plain version run.
   4. Card against CPU at full width: the served storage tree cut to 2 layers,
-     prefill and 2 decode steps on the card (kernels), twice (the same bits
+     prefill and 1 decode step on the card (kernels), twice (the same bits
      both times), and on the CPU (plain versions); the largest logit
-     difference must be <= 1e-3.  The sha256 of each step's logits, on the
+     difference must be <= 1e-3 (cut from 2 decode steps to make room for
+     phase 17, as phase 6 was).  The sha256 of each step's logits, on the
      card and on the CPU, is printed, so that runs can be compared.
   5. Serve recurrentgemma-2b (griffin) at full width the same way (26 layers,
      d 2560, vocab 256,000; batch 4, prompt 32, 16 new tokens, with the wire
@@ -226,10 +227,42 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
      scenarios) and ``examples_torch/quickstart.py`` (10 rounds) on the
      card, each with its launch counts printed: ``quantize_stats`` and
      ``dequantize`` launched, no plain version.
+ 17. The compression strategies at full width (``repro_torch.compress``),
+     under deterministic algorithms.  Wire: for each of ``default_zoo()``
+     (omc S1E3M7 and S1E4M3, top-k 0.1, ternary, pipeline) and top-k with
+     S1E3M7 values, ``encode_tree`` -> ``encode_payload`` ->
+     ``decode_payload`` -> ``decode_tree`` over conformer_s at full width
+     (random weights, seed 0): ``tree_wire_bytes`` = the payload body = the
+     plan where the strategy has one; the decoded frame encodes to the same
+     bytes (and, for top-k, the decoded tree re-encodes to the same
+     leaves); B1-B4 launches in each step exactly as predicted
+     from the 13 selected leaves; bytes over f32 and encode / decode ms
+     printed.  Card against CPU on four of those leaves (conv_pw1,
+     [17, 512, 1024], and the three smallest): the CPU's plain versions
+     write the card's frame byte for byte (top-k with S1E3M7 values, the
+     pipeline); ternary's frame parsed on the CPU holds the card's codes
+     and scales, and the CPU's own ``ternarize`` is held to ROADMAP C18;
+     every frame decoded on the CPU is the card's decode bit for bit.
+     Training: the engine at phase 7's configuration, unfused: strategy
+     omc against None, 2 rounds each, the same bits; top-k 0.1 with error
+     feedback 2 rounds, ternary with it 1 round, the pipeline 1 round
+     without the ledger; each with its s a round, peak memory,
+     ``ef_bytes`` and residual norm, its launches equal to the same run's
+     on the CPU at the smoke config, and its ledger equal to the
+     reference's rule restated.  Card against CPU at 2 layers (batches of
+     2 x 32 frames, 1 local step): the loop under top-k + EF for 2 rounds,
+     cohort 2 of 4 (the second from the CPU's state on both sides): trees
+     within phase 7's gate, residuals within 1e-6 but for at most 32
+     threshold flips a round (ROADMAP C17), each kept on one side and
+     dropped on the other by that side's own rule on its recorded
+     compensated update, the dropped magnitude within 640 ulp of its
+     side's threshold; the async runtime under top-k + EF on the
+     degenerate trace (2 clients, buffer 2, 2 flushes), a mid-buffer
+     checkpoint resumed to the same bits, card against CPU within the gates.
 
 Each phase's wall seconds are printed on a line of their own.  It then
 prints one JSON line describing each kernel (``launches_by_path`` has the
-main paths of phases 3, 5, 7, 9, 11, 13, 15 and 16) and, last, the line
+main paths of phases 3, 5, 7, 9, 11, 13, 15, 16 and 17) and, last, the line
 ``{"ok": true, "device": {...}}``.  f32 matmuls run in full f32: TF32 is
 switched off for matmuls and cuDNN.  Exits non-zero without a CUDA device.
 """
@@ -256,11 +289,12 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch import compress  # noqa: E402
 from repro_torch.api import codecs, demo, session  # noqa: E402
 from repro_torch.api.session import FLClient, FLSession, ServeSession  # noqa: E402
 from repro_torch.configs import conformer_s, qwen2_5_3b, recurrentgemma_2b  # noqa: E402
 from repro_torch.core import omc as omc_lib  # noqa: E402
-from repro_torch.core import prng  # noqa: E402
+from repro_torch.core import packing, prng  # noqa: E402
 from repro_torch.core.formats import FloatFormat, narrow, widen  # noqa: E402
 from repro_torch.core.omc import OMCConfig  # noqa: E402
 from repro_torch.core.policy import QuantizePolicy  # noqa: E402
@@ -272,12 +306,13 @@ from repro_torch.data.partition import (DirichletPartition, DomainPartition,  # 
                                         ShardPartition, make_partitioned_batch_fn)
 from repro_torch.data.synthetic import make_frame_task, make_lm_task  # noqa: E402
 from repro_torch.federated import accounting, async_engine, engine, simulate  # noqa: E402
-from repro_torch.federated import traces  # noqa: E402
+from repro_torch.core.partial import ppq_masks_batch  # noqa: E402
+from repro_torch.federated import cohort, traces  # noqa: E402
 from repro_torch.federated.cohort import CohortPlan  # noqa: E402
 from repro_torch import checkpoint as ck  # noqa: E402
 from repro_torch.federated.round import make_round_fn  # noqa: E402
 from repro_torch.federated.state import (compress_params, init_state,  # noqa: E402
-                                         state_bytes_report)
+                                         n_stack_axes, state_bytes_report)
 from repro_torch.kernels import agg  # noqa: E402
 from repro_torch.kernels import bitpack as bk  # noqa: E402
 from repro_torch.kernels import dequant_matmul as dm  # noqa: E402
@@ -1058,8 +1093,10 @@ def phase_card_vs_cpu(sess: ServeSession) -> float:
     st = sess.storage
     cut = dict(embed=st["embed"], final_norm=st["final_norm"],
                blocks={k: v[:2] for k, v in st["blocks"].items()})
+    # one decode step, as phase 6: the CPU side decodes the 151,936 x 2048
+    # tied head in plain PyTorch once a forward pass, and phase 17 needs room
     return card_vs_cpu("qwen2.5-3b, 2 layers", transformer,
-                       dataclasses.replace(CFG, n_layers=2), cut)
+                       dataclasses.replace(CFG, n_layers=2), cut, decode_steps=1)
 
 
 def phase_griffin_card_vs_cpu(sess: ServeSession) -> float:
@@ -2253,6 +2290,519 @@ def phase_noniid() -> dict:
                 counts=_sum_counts(counts))
 
 
+# ---------------------------------------------------------------------------
+# 17. the compression strategies at full width
+# ---------------------------------------------------------------------------
+
+
+STRAT_SIM = simulate.SimConfig(local_steps=2, client_lr=0.1)  # phase 7's
+STRAT_PLAN = CohortPlan(num_clients=16, cohort_size=COHORT, failure_rate=0.25)
+STRAT_DIR = ROOT / "build" / "strategies"  # the async runner's mid-buffer checkpoint
+RESID = 1e-6  # the reference's residual gate (tests/test_train_strategy.py)
+# a large selected leaf ([17, 512, 1024]) and the three smallest, whose
+# frames the CPU's plain versions must write byte for byte
+CHECK_LEAVES = ("blocks/conv_pw1", "blocks/conv_dw", "in_proj", "out_proj")
+FLIPS = 32  # C17: top-k threshold flips allowed a round, card against CPU
+C18_ULPS = 32  # C18: ternary scales card against CPU (the CPU tests' gate)
+# C17: a flip's |comp| below its dropping side's threshold, twice the
+# largest reading on an H100 against its host's CPU (320 ulp; the two
+# sides' updates differ by up to 2048 ulp of the threshold in those rows)
+FLIP_ULPS = 640
+
+
+def strategy_zoo() -> list:
+    """``default_zoo()`` and top-k with S1E3M7 values, so that B3 and B4 run
+    for top-k too."""
+    return compress.default_zoo() + [compress.get_strategy("topk", value_fmt=FMT)]
+
+
+def wire_prediction(strategy, leaves: int) -> dict:
+    """The kernels' launches in each step of a wire roundtrip, from the number
+    of selected leaves: OMC's encode is B1 and its decode B2, its codec B4;
+    ternary codes pack and unpack in the codec; top-k with minifloat values
+    and the pipeline write codes with B3 and pack them at encode, unpack at
+    decode; f32 top-k launches nothing."""
+    if strategy.name == "omc":
+        steps = dict(encode=dict(quantize_stats=leaves), payload=dict(pack=leaves),
+                     parse=dict(unpack=leaves), decode=dict(dequantize=leaves))
+    elif strategy.name == "ternary":
+        steps = dict(encode={}, payload=dict(pack=leaves), parse=dict(unpack=leaves), decode={})
+    elif strategy.name == "pipeline" or not strategy.value_fmt.is_identity:
+        steps = dict(encode=dict(quantize=leaves, pack=leaves), payload={}, parse={},
+                     decode=dict(unpack=leaves))
+    else:
+        steps = dict(encode={}, payload={}, parse={}, decode={})
+    return {step: {f"{k}.cuda": v for k, v in want.items()} for step, want in steps.items()}
+
+
+def subtree(tree, names) -> dict:
+    """The leaves of ``tree`` at the '/'-joined ``names``, nested as there."""
+    out: dict = {}
+    for path, leaf in tree_items(tree):
+        if "/".join(path) in names:
+            node = out
+            for part in path[:-1]:
+                node = node.setdefault(part, {})
+            node[path[-1]] = leaf
+    return out
+
+
+def ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """|a - b| in f32 ulps (same-signed finite values)."""
+    return (a.float().cpu().view(torch.int32).long()
+            - b.float().cpu().view(torch.int32).long()).abs()
+
+
+def ternary_card_vs_cpu(params, specs) -> tuple:
+    """ROADMAP C18 on the card: ``ternarize`` on the card and on the CPU.
+    The means are f32 reductions in another order, so Δ and the scales may
+    differ by ulps: each flipped code's |v| must lie between the two Δ of
+    its stacked entry, and the scales of entries without a flip within
+    C18_ULPS.  Returns (flips, values, largest scale gap)."""
+    flips = n = gap = 0
+    for (path, x), (_, spec) in zip(tree_items(params), tree_items(specs)):
+        ax = n_stack_axes(spec, x)
+        axes = tuple(range(ax, x.ndim))
+        (tc, sc), (th, sh) = compress.ternarize(x, ax), compress.ternarize(x.cpu(), ax)
+        dc = (0.7 * x.abs().mean(dim=axes, keepdim=True)).cpu()
+        dh = 0.7 * x.cpu().abs().mean(dim=axes, keepdim=True)
+        flipped = tc.cpu() != th
+        mag = x.cpu().abs()[flipped]
+        lo = torch.minimum(dc, dh).expand(x.shape)[flipped]
+        hi = torch.maximum(dc, dh).expand(x.shape)[flipped]
+        require(bool(((lo <= mag) & (mag <= hi)).all()),
+                f"ternary {'/'.join(path)}: a code flips outside the gap of Δ: "
+                f"{mag[:4].tolist()} {lo[:4].tolist()} {hi[:4].tolist()}")
+        clean = ulps(sc, sh)[~flipped.reshape(*x.shape[:ax], -1).any(-1)]
+        gap = max(gap, int(clean.max()) if clean.numel() else 0)
+        flips += int(flipped.sum())
+        n += x.numel()
+    require(gap <= C18_ULPS, f"ternary scales {gap} ulp apart card against CPU")
+    return flips, n, gap
+
+
+def wire_card_vs_cpu(strategy, params, specs, omc, enc, dec) -> str:
+    """The check leaves' frame, card against CPU.  Where the encode launches
+    a kernel (top-k with S1E3M7 values, the pipeline), the CPU encodes the
+    same weights with the plain versions and must write the card's frame
+    byte for byte (omc's B1 is held in phases 2 and 15; f32 top-k launches
+    none and selects as top-k with S1E3M7 values does).  Ternary packs in
+    the codec: the card's frame, parsed on the CPU, must hold the card's
+    codes and scales, and the CPU's own ``ternarize`` is held to C18.  The
+    card's frame, decoded on the CPU, must give the card's decode bit for
+    bit (every strategy).  Returns what was checked, for the printed
+    line."""
+    card = subtree(enc, CHECK_LEAVES)
+    require(sorted("/".join(p) for p, x in tree_items(card) if compress.is_encoded_leaf(x))
+            == sorted(CHECK_LEAVES), f"{strategy.label}: check leaves not all encoded")
+    frame = codecs.encode_payload(card, strategy=strategy)
+    back, _ = codecs.decode_payload(frame, device="cpu")
+    said = f"frame ({len(frame):,} B)"
+    if strategy.name == "pipeline" or (strategy.name == "topk"
+                                       and not strategy.value_fmt.is_identity):
+        host = tree_map(lambda x: x.cpu(), subtree(params, CHECK_LEAVES))
+        host_enc = compress.encode_tree(strategy, host, omc, subtree(specs, CHECK_LEAVES))
+        require(codecs.encode_payload(host_enc, strategy=strategy) == frame,
+                f"{strategy.label}: the CPU's frame of {CHECK_LEAVES} is not the card's")
+        said += " the CPU's own, byte for byte,"
+    elif strategy.name == "ternary":
+        parsed = dict(tree_items(back))
+        for path, leaf in tree_items(card):
+            # a 0-d scale travels as shape [1], as the reference writes it
+            require(torch.equal(parsed[path].codes, leaf.codes.cpu())
+                    and bit_equal(parsed[path].scale.reshape(leaf.scale.shape),
+                                  leaf.scale.cpu()),
+                    f"ternary: {'/'.join(path)}'s frame parsed on the CPU is not the card's")
+        flips, n, gap = ternary_card_vs_cpu(subtree(params, CHECK_LEAVES),
+                                            subtree(specs, CHECK_LEAVES))
+        said += (f" parsed on the CPU to the card's codes and scales (the CPU's ternarize: "
+                 f"{flips} code flips of {n:,}, each within the gap of Δ; scales within "
+                 f"{gap} ulp, C18),")
+    host_dec = dict(tree_items(compress.decode_tree(back)))
+    for path, leaf in tree_items(subtree(dec, CHECK_LEAVES)):
+        require(bit_equal(leaf.cpu(), host_dec[path]),
+                f"{strategy.label}: {'/'.join(path)} decodes otherwise on the CPU")
+    return said + " decoded on the CPU to the card's bits"
+
+
+def strategies_wire(params, specs, omc) -> dict:
+    """Each strategy's wire roundtrip over the full-width tree, launches
+    counted step by step against the prediction."""
+    table = accounting.build_wire_table(params, specs, omc)
+    out, counts = {}, {}
+    for strategy in strategy_zoo():
+        want = wire_prediction(strategy, table.num_vars)
+        got, ms = {}, {}
+
+        def step(name, fn):
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            ms[name] = (time.perf_counter() - t0) * 1e3
+            got[name] = ops.launch_counts()
+            return res
+
+        enc = step("encode", lambda: compress.encode_tree(strategy, params, omc, specs))
+        payload = step("payload", lambda: codecs.encode_payload(enc, strategy=strategy))
+        back, info = step("parse", lambda: codecs.decode_payload(payload, device="cuda"))
+        dec = step("decode", lambda: compress.decode_tree(back))
+        require(got == want, f"{strategy.label}: launches {got}, predicted {want}")
+        for c in got.values():
+            for k, v in c.items():
+                counts[k] = counts.get(k, 0) + v
+        twb = compress.tree_wire_bytes(enc)
+        rows = [strategy.plan_wire_bytes(n, sb)
+                for n, sb in zip(table.n_elems, table.stack_entries)]
+        plan = None if None in rows else sum(rows) + table.raw_bytes
+        require(twb["wire_bytes"] == info.body_bytes
+                == codecs.payload_bytes_report(back)["wire_bytes"],
+                f"{strategy.label}: bytes {twb['wire_bytes']} / body {info.body_bytes}")
+        require(plan is None or plan == info.body_bytes,
+                f"{strategy.label}: plan {plan} against {info.body_bytes} measured")
+        require((info.strategy, info.strategy_version) == (strategy.name, strategy.wire_version),
+                f"{strategy.label}: frame tagged {info.strategy} v{info.strategy_version}")
+        # the decoded tree encodes to the same frame; top-k also re-encodes
+        # from the decoded values to the same leaves (the pipeline's are top-k's
+        # positions and B3's codes of them, and its DEFLATE takes seconds)
+        require(codecs.encode_payload(back, strategy=strategy) == payload,
+                f"{strategy.label}: re-encoding the decoded frame changed its bytes")
+        if strategy.name == "topk":
+            again = compress.encode_tree(strategy, dec, omc, specs)
+            require(codecs.encode_payload(again, strategy=strategy) == payload,
+                    f"{strategy.label}: re-encoding the decoded tree changed its leaves")
+        for path, leaf in tree_items(dec):
+            ref = dict(tree_items(params))[path]
+            require(leaf.shape == ref.shape and leaf.device.type == "cuda"
+                    and bool(torch.isfinite(leaf).all()), f"{strategy.label}: leaf {path}")
+        t0 = time.perf_counter()
+        cross = wire_card_vs_cpu(strategy, params, specs, omc, enc, dec)
+        cross_s = time.perf_counter() - t0
+        out[strategy.label] = dict(wire_bytes=info.body_bytes, plan=plan,
+                                   ratio=info.body_bytes / table.fp32_total,
+                                   per_strategy=twb["per_strategy"], ms=ms, launches=got,
+                                   check=cross, check_s=cross_s)
+        print(f"  {strategy.label}: {info.body_bytes:,} B ({info.body_bytes / table.fp32_total:.2%}"
+              f" of f32), plan {plan if plan is None else f'{plan:,}'}; encode "
+              f"{ms['encode'] + ms['payload']:.1f} ms (tree {ms['encode']:.1f}), decode "
+              f"{ms['parse'] + ms['decode']:.1f} ms (tree {ms['decode']:.1f}); launches "
+              f"{ {k: v for k, v in got.items() if v} }; check leaves' {cross} "
+              f"({cross_s:.1f} s)")
+        del enc, payload, back, dec
+    return dict(rows=out, counts=counts, leaves=table.num_vars, fp32=table.fp32_total)
+
+
+def ledger_rule(table, omc, strategy, ids, alive, round_index) -> tuple:
+    """The reference's ledger, restated: every invited client downloads the
+    at-rest state (an upload-only strategy) or the strategy's plan of it;
+    every survivor uploads its PPQ-masked variables under the strategy's
+    plan, the rest f32."""
+    plan = np.asarray([strategy.plan_wire_bytes(n, sb) if strategy is not None else
+                       packing.packed_bytes(n, omc.fmt) + 8 * sb
+                       for n, sb in zip(table.n_elems, table.stack_entries)], np.int64)
+    f32 = 4 * np.asarray(table.n_elems, np.int64)
+    at_rest = int(sum(packing.packed_bytes(n, omc.fmt) + 8 * sb
+                      for n, sb in zip(table.n_elems, table.stack_entries))) + table.raw_bytes
+    down = len(ids) * (at_rest if strategy is None or strategy.upload_only
+                       else int(plan.sum()) + table.raw_bytes)
+    masks = ppq_masks_batch(omc.ppq_key(), round_index, ids, table.num_vars,
+                            omc.quantize_fraction).numpy()
+    up = sum(int(np.where(m, plan, f32).sum()) + table.raw_bytes
+             for m, ok in zip(masks, alive) if ok)
+    return down, up
+
+
+class recorded_comps:
+    """Within the block, the loop's ``strategy_upload`` records each
+    client's compensated update ``comp = (trained - received) + residual``
+    of each leaf it has a residual for (the expression ``compensate_leaf``
+    evaluates, on the same device: the same bits) in ``store[(client,
+    path)]``."""
+
+    def __init__(self, store: dict):
+        self.store, self.inner = store, simulate.strategy_upload
+
+    def __enter__(self):
+        def upload(trained, received, residual, specs, omc, strategy, round_index, client_id,
+                   ste=False):
+            t, r = dict(tree_items(trained)), dict(tree_items(received))
+            for path in t:
+                name = "/".join(path)
+                if residual is not None and name in residual:
+                    self.store[(client_id, name)] = (t[path] - r[path]) + residual[name]
+            return self.inner(trained, received, residual, specs, omc, strategy, round_index,
+                              client_id, ste)
+
+        simulate.strategy_upload = upload
+        return self.store
+
+    def __exit__(self, *exc):
+        simulate.strategy_upload = self.inner
+
+
+def flip_count(a: dict, b: dict, comps_a: dict, comps_b: dict, density: float) -> tuple:
+    """Residuals of two runs of f32 top-k with error feedback: (entries
+    beyond RESID, entries in all, the largest gap and the largest comp
+    difference of a flipped row, both in ulps of the threshold).  Each
+    entry beyond RESID must be a flip (ROADMAP C17): kept (residual 0) on
+    one side and dropped (residual = comp) on the other, each side's choice
+    its own rule ``|comp| >= the k-th largest |comp|`` of the client's
+    leaf, and the dropped |comp| within FLIP_ULPS of its side's
+    threshold."""
+    flips = total = 0
+    worst = noise = 0.0
+    for name in a:
+        x, y = a[name].to("cpu"), b[name].to("cpu")
+        total += x.numel()
+        off = (x - y).abs() > RESID
+        for c in off.flatten(1).any(1).nonzero().flatten().tolist():
+            pos = off[c].flatten().nonzero().flatten()
+            ca, cb = (comps[(c, name)].to("cpu").flatten() for comps in (comps_a, comps_b))
+            k = compress.topk.num_kept(ca.numel(), density)
+            ta, tb = (torch.topk(v.abs(), k).values[-1] for v in (ca, cb))
+            ma, mb = ca[pos].abs(), cb[pos].abs()
+            keep_a, keep_b = ma >= ta, mb >= tb
+            require(bool((keep_a != keep_b).all()),
+                    f"residual {name} client {c}: entries beyond {RESID} kept or dropped on "
+                    f"both sides: {ca[pos][keep_a == keep_b][:4].tolist()}")
+            ra, rb = x[c].flatten()[pos], y[c].flatten()[pos]
+            dropped = torch.where(keep_a, cb[pos], ca[pos])
+            require(bool((torch.where(keep_a, ra, rb) == 0).all())
+                    and bit_equal(torch.where(keep_a, rb, ra), dropped),
+                    f"residual {name} client {c}: a flip's residuals are not 0 and comp")
+            t = torch.where(keep_a, tb, ta).double()
+            ulp = float(torch.nextafter(ta, torch.tensor(math.inf)) - ta)
+            gap = (t - torch.where(keep_a, mb, ma).double()) / ulp
+            worst = max(worst, float(gap.max()))
+            noise = max(noise, float((ca.abs().double() - cb.abs().double()).abs().max()) / ulp)
+            require(bool((gap <= FLIP_ULPS).all()),
+                    f"residual {name} client {c}: a dropped |comp| {gap.max():.0f} ulp under "
+                    f"its threshold")
+            flips += pos.numel()
+    return flips, total, worst, noise
+
+
+def strategies_train(params, specs, omc) -> dict:
+    """The engine at phase 7's configuration (unfused) under the strategies,
+    launches against a CPU dry run at the smoke config (the engine's launches
+    depend on the 13 compressed leaves and the cohort, not on depth or
+    width)."""
+    cfg = TRAIN_CFG
+    key = prng.PRNGKey(0)
+    spec = engine.CohortSpec(STRAT_PLAN)
+    task = make_frame_task(d_in=cfg.d_in, n_classes=cfg.n_classes, seq_len=256, num_clients=16)
+    data_fn = lambda c, r, s: task.batch(c, r, s, 8)  # noqa: E731
+    table = accounting.build_wire_table(params, specs, omc)
+    smoke = conformer_s.smoke_config()
+    smoke_params = conformer.init(prng.PRNGKey(0), smoke, "cpu")
+    smoke_task = make_frame_task(d_in=smoke.d_in, n_classes=smoke.n_classes, seq_len=8,
+                                 num_clients=16, device="cpu")
+    require(accounting.selected_names(smoke_params, conformer.param_specs(smoke), omc)
+            == list(table.names), "smoke and full configs select other leaves")
+    runs, counts = {}, {}
+
+    def train(name, strategy, rounds, wire=True):
+        takes_ef = strategy is not None and compress.feedback.takes_residual(omc, strategy)
+        ef = compress.feedback.init_ef_state(params, specs, omc, 16) if takes_ef else None
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        storage, hist = engine.run_training_vectorized(
+            conformer, cfg, omc, STRAT_SIM, spec, data_fn, key, rounds, init_params=params,
+            wire=wire, strategy=strategy, ef=ef)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = ops.launch_counts()
+        # the same run on the CPU at the smoke config: the plain versions' launches
+        ops.reset_launch_counts()
+        smoke_ef = (compress.feedback.init_ef_state(smoke_params, conformer.param_specs(smoke),
+                                                    omc, 16) if takes_ef else None)
+        engine.run_training_vectorized(
+            conformer, smoke, omc, STRAT_SIM, spec,
+            lambda c, r, s: smoke_task.batch(c, r, s, 1), key, rounds,
+            init_params=smoke_params, wire=False, strategy=strategy, ef=smoke_ef)
+        want = as_cuda(ops.launch_counts())
+        # B1: the init compress and each round's re-compress, 13 leaves each
+        require(got == want and got.get("quantize_stats.cuda", 0) == 13 * (rounds + 1),
+                f"{name}: launches {got}, the CPU dry run's {want}")
+        for k, v in got.items():
+            counts[k] = counts.get(k, 0) + v
+        for r, h in enumerate(hist):
+            require(math.isfinite(h["loss"]) and 0 < h["loss"] < 20, f"{name}: bad loss {h}")
+            if wire:
+                ids = cohort.sample_cohort(prng.fold_in(key, 0xC047), STRAT_PLAN, r).tolist()
+                alive = cohort.survival_mask(prng.fold_in(key, 0xC047), STRAT_PLAN, r).tolist()
+                rule = ledger_rule(table, omc, strategy, ids, alive, r)
+                require((h["down_bytes"], h["up_bytes"]) == rule,
+                        f"{name}: ledger {h} against the reference's rule {rule}")
+        runs[name] = dict(storage=storage, history=hist, s_per_round=wall / rounds,
+                          peak_gb=torch.cuda.max_memory_allocated() / 1e9, counts=got,
+                          ef_bytes=compress.feedback.ef_bytes(ef),
+                          ef_norm=compress.feedback.total_norm(ef) if ef else 0.0)
+        if ef:
+            require(runs[name]["ef_norm"] > 0 and math.isfinite(runs[name]["ef_norm"]),
+                    f"{name}: residual norm {runs[name]['ef_norm']}")
+        del ef
+        torch.cuda.empty_cache()
+        print(f"  engine {name}: {rounds} round(s), {wall / rounds:.2f} s a round, peak "
+              f"{runs[name]['peak_gb']:.2f} GB, ef_bytes {runs[name]['ef_bytes']:,}, residual "
+              f"norm {runs[name]['ef_norm']:.4g}, launches {got} (the CPU dry run's); "
+              + "; ".join(f"round {h['round']}: loss {h['loss']:.4f}"
+                          + (f", down {h['down_bytes']:,} up {h['up_bytes']:,}" if wire else "")
+                          for h in hist))
+
+    train("none", None, 2)
+    train("omc", compress.get_strategy("omc"), 2)
+    require(runs["none"]["history"] == runs["omc"]["history"]
+            and trees_bit_equal(runs["none"]["storage"], runs["omc"]["storage"]),
+            "strategy omc and strategy None trained different bits")
+    print("  strategy omc against None: storage, history and ledger the same bits")
+    for name in ("none", "omc"):
+        runs[name].pop("storage")
+    train("topk-0.1+ef", compress.get_strategy("topk", density=0.1), 2)
+    train("ternary+ef", compress.get_strategy("ternary"), 1)
+    train("pipeline+ef", compress.get_strategy("pipeline"), 1, wire=False)
+    for r in runs.values():
+        r.pop("storage", None)
+    return dict(runs=runs, counts=counts)
+
+
+def strategies_card_vs_cpu() -> dict:
+    """Conformer_s cut to 2 layers at full width: the loop under top-k with
+    error feedback, 2 rounds, and the async runtime under it on the
+    degenerate trace, on the card (kernels) and on the CPU (plain versions).
+    Round 2 of the loop starts from the CPU's state on both sides, so the
+    residual gate holds round by round (one re-compress step on a boundary
+    element moves many entries across the threshold in the next round)."""
+    cfg = dataclasses.replace(TRAIN_CFG, n_layers=2)
+    omc = OMCConfig.parse(FMT.name)
+    sim = simulate.SimConfig(local_steps=1, client_lr=0.1)
+    plan = CohortPlan(num_clients=4, cohort_size=2)
+    topk = compress.get_strategy("topk", density=0.1)
+    params = conformer.init(prng.PRNGKey(1), cfg, "cuda")
+    specs = conformer.param_specs(cfg)
+    key = prng.fold_in(prng.PRNGKey(0), 0xC047)
+    devs = dict(card="cuda", host="cpu")
+    tasks = {side: make_frame_task(d_in=cfg.d_in, n_classes=cfg.n_classes, seq_len=32,
+                                   num_clients=4, device=d) for side, d in devs.items()}
+    table = accounting.build_wire_table(params, specs, omc)
+    out = {}
+
+    def loop_round(side, storage, ef, r):
+        with recorded_comps({}) as comps:
+            st, m = simulate.run_round(
+                conformer, cfg, specs, omc, sim, storage,
+                lambda c, rr, s, t=tasks[side]: t.batch(c, rr, s, 2), plan, r, key,
+                wire_table=table, strategy=topk, ef=ef)
+        return dict(st=st, m=m, ef=ef, comps=comps)
+
+    def to(tree, dev):
+        return tree_map(lambda x: x.to(dev), tree)
+
+    runs = {}
+    for side, dev in devs.items():
+        p = to(params, dev)
+        ef = compress.feedback.init_ef_state(p, specs, omc, 4)
+        ops.reset_launch_counts()
+        runs[side] = loop_round(side, compress_params(p, specs, omc), ef, 0)
+        runs[side]["counts"] = ops.launch_counts()
+    require(runs["card"]["counts"] == as_cuda(runs["host"]["counts"]),
+            f"loop launches: card {runs['card']['counts']}, CPU {runs['host']['counts']}")
+    gaps, flips, ulps = [], [], []
+    for r in (0, 1):
+        if r:  # round 2 from the CPU's state on both sides
+            start, start_ef = runs["host"]["st"], runs["host"]["ef"]
+            for side, dev in devs.items():
+                ef = {k: v.to(dev).clone() for k, v in start_ef.items()}
+                runs[side] = loop_round(side, to(start, dev), ef, 1)
+        mc, mh = runs["card"]["m"], runs["host"]["m"]
+        require({k: mc[k] for k in ("cohort", "dropped", "down_bytes", "up_bytes")}
+                == {k: mh[k] for k in ("cohort", "dropped", "down_bytes", "up_bytes")}
+                and abs(mc["loss"] - mh["loss"]) < 1e-3, f"loop round {r}: {mc} {mh}")
+        gap = tree_gap(runs["card"]["st"], to(runs["host"]["st"], "cuda"))
+        require(gap[0] <= TREE_MAX and gap[1] <= TREE_MEAN, f"loop round {r} trees {gap}")
+        f, n, u, z = flip_count(runs["card"]["ef"], runs["host"]["ef"],
+                                runs["card"]["comps"], runs["host"]["comps"], topk.density)
+        require(f <= FLIPS, f"loop round {r}: {f} flips of {n} residual entries")
+        gaps.append(gap)
+        flips.append(f)
+        ulps.append((u, z))
+    out["loop"] = dict(gaps=gaps, flips=flips, entries=n, flip_ulps=ulps)
+    print(f"  loop, 2 layers at full width, top-k 0.1 + EF, cohort 2 of 4, 2 x 32 frames, 2 "
+          f"rounds: ledgers equal, trees max |d| {[f'{g[0]:.3g}' for g in gaps]}, residual "
+          f"flips {flips} of {n:,} (C17; each kept on one side and dropped on the other by "
+          f"its own rule, at most {[f'{u:.0f}' for u, _ in ulps]} ulp under its threshold; "
+          f"comp card against CPU up to {[f'{z:.0f}' for _, z in ulps]} ulp of it in those "
+          f"rows)")
+
+    # the async runtime on the degenerate trace, a mid-buffer checkpoint on the card
+    acfg, trace = async_engine.AsyncConfig(buffer_goal=2), traces.FixedTrace(latency=1.0)
+
+    def runner(side):
+        return async_engine.AsyncRunner(conformer, cfg, omc, sim, acfg, trace, num_clients=2,
+                                        data_fn=lambda c, r, s, t=tasks[side]: t.batch(c, r, s, 2),
+                                        init_params=to(params, devs[side]), strategy=topk)
+
+    shutil.rmtree(STRAT_DIR, ignore_errors=True)
+    card = runner("card")
+    card.run_until(flushes=1)
+    card.run_until(uploads=1)  # mid-buffer: one upload waits for the next flush
+    path = ck.save_async_state(str(STRAT_DIR), card)
+    card.run_until(flushes=1)
+    fresh = runner("card")
+    ck.restore_async_state(path, fresh)
+    fresh.run_until(flushes=1)
+    require(trees_bit_equal(fresh.storage, card.storage) and fresh.history == card.history
+            and all(bit_equal(fresh.ef[k], card.ef[k]) for k in card.ef),
+            "the async EF resume differs from the straight run")
+    host = runner("host")
+    host.run_until(flushes=2)
+    require(schedule(card.history) == schedule(host.history), "async schedules differ")
+    for a, b in zip(card.history, host.history):
+        require(abs(a["loss"] - b["loss"]) < 1e-3, f"async losses {a} {b}")
+    gap = tree_gap(card.storage, to(host.storage, "cuda"))
+    require(gap[0] <= TREE_MAX and gap[1] <= TREE_MEAN, f"async trees {gap}")
+    shutil.rmtree(STRAT_DIR, ignore_errors=True)
+    out["async"] = dict(gap=gap)
+    print(f"  async, 2 layers at full width, top-k 0.1 + EF, degenerate trace (2 clients, "
+          f"buffer 2), 2 flushes: a mid-buffer checkpoint resumed to the same bits "
+          f"(storage, history, residuals); card against CPU schedules and ledgers equal, trees "
+          f"max |d| {gap[0]:.3g}")
+    return out
+
+
+def phase_strategies() -> dict:
+    """The zoo at full width: each strategy's wire roundtrip, the engine under
+    the strategies, and the loop and async runtime card against CPU; under
+    deterministic algorithms (strategy omc against None is compared bit for
+    bit)."""
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    try:
+        cfg, omc = TRAIN_CFG, OMCConfig.parse(FMT.name)
+        params = conformer.init(prng.PRNGKey(0), cfg, "cuda")
+        specs = conformer.param_specs(cfg)
+        t0 = time.perf_counter()
+        wire = strategies_wire(params, specs, omc)
+        t1 = time.perf_counter()
+        trained = strategies_train(params, specs, omc)
+        t2 = time.perf_counter()
+        del params
+        torch.cuda.empty_cache()
+        cross = strategies_card_vs_cpu()
+        print(f"  parts: wire {t1 - t0:.1f} s, engine {t2 - t1:.1f} s, card against CPU "
+              f"{time.perf_counter() - t2:.1f} s")
+    finally:
+        torch.use_deterministic_algorithms(deterministic)
+    counts = dict(wire["counts"])
+    for k, v in trained["counts"].items():
+        counts[k] = counts.get(k, 0) + v
+    return dict(wire=wire, train=trained, cross=cross, counts=counts)
+
+
 def min_ms(fn, reps: int = 3) -> float:
     """Best wall ms of ``fn()`` over ``reps`` calls, the card synchronized."""
     best = math.inf
@@ -2329,6 +2879,8 @@ def main() -> None:
     sessions = timed(15, "FL sessions at full width", phase_sessions)
     torch.cuda.empty_cache()
     noniid = timed(16, "non-IID path at full width", phase_noniid)
+    torch.cuda.empty_cache()
+    strategies = timed(17, "strategies at full width", phase_strategies)
     print(f"all phases: {time.perf_counter() - t0:.1f} s")
     print(json.dumps(kernel_line(kernels, {"serve": served["report"]["launch_counts"],
                                            "serve_griffin": served_g["report"]["launch_counts"],
@@ -2337,7 +2889,8 @@ def main() -> None:
                                            "train_driver": driver["counts"],
                                            "async": asynced["counts"],
                                            "sessions": sessions["counts"],
-                                           "noniid": noniid["counts"]})))
+                                           "noniid": noniid["counts"],
+                                           "strategies": strategies["counts"]})))
     print(json.dumps(dict(ok=True, device=dict(platform="gpu", kind=torch.cuda.get_device_name(0),
                                                count=torch.cuda.device_count()))))
 

@@ -36,12 +36,14 @@ and ``unpack`` kernels), with the plain versions for CPU trees; framing,
 JSON and crc32 stay on the host.
 
 Strategy leaves: :func:`register_leaf_codec` registers a leaf kind beyond
-the built-in ``omc`` and ``raw``, as the reference's does, and
+the built-in ``omc`` and ``raw``, as the reference's does, and the encode,
 :func:`decode_payload`, :func:`tree_digest` and :func:`payload_bytes_report`
-consult the registry.  The compression-strategy zoo that registers the
-reference's kinds (``topk``, ``ternary``, ``pipeline``) and tags its frames
-is not ported yet (ROADMAP A7): a strategy-tagged frame, or a tree holding a
-registered kind (whose frame the reference tags), raises :class:`CodecError`.
+consult the registry.  ``repro_torch.compress`` registers the zoo's kinds
+(``topk``, ``ternary``, ``pipeline``).  A frame holding a strategy's leaves
+(or encoded with ``strategy=``) carries the strategy's tag and wire version
+in its manifest, as the reference's does; decoding an unknown tag or another
+wire version raises :class:`CodecError`.  Frames of either package decode
+in the other.
 
 Byte accounting: for a full payload the body is exactly
 ``packed_bytes(n, fmt) + 8·s.size`` per compressed leaf plus ``itemsize·n``
@@ -76,7 +78,7 @@ _PVT_BYTES_PER_ENTRY = 8  # s and b, f32 each
 
 
 class CodecError(ValueError):
-    """Malformed, corrupt, version-incompatible or not-yet-ported payload."""
+    """Malformed, corrupt or version-incompatible payload."""
 
 
 # ---------------------------------------------------------------------------
@@ -88,9 +90,11 @@ _LEAF_CODECS: Dict[str, Tuple[type, Any, Any]] = {}
 
 def register_leaf_codec(kind: str, leaf_type: type, encode_fn, decode_fn) -> None:
     """Register a strategy leaf kind: ``encode_fn(leaf, base) -> (meta,
-    [chunks])`` and ``decode_fn(meta, body, off, base) -> (leaf, off)``.
-    The body section must measure exactly ``leaf.wire_body_bytes()`` bytes,
-    so that every ledger reconciles."""
+    [chunks])`` and ``decode_fn(meta, body, off, base, device) -> (leaf,
+    off)``, the leaf's tensors on ``device`` (the reference's decoders take
+    no device: its leaves live on the host).  The body section must measure
+    exactly ``leaf.wire_body_bytes()`` bytes, so that every ledger
+    reconciles."""
     if kind in ("omc", "raw"):
         raise ValueError(f"leaf kind {kind!r} is built in")
     prev = _LEAF_CODECS.get(kind)
@@ -99,11 +103,54 @@ def register_leaf_codec(kind: str, leaf_type: type, encode_fn, decode_fn) -> Non
     _LEAF_CODECS[kind] = (leaf_type, encode_fn, decode_fn)
 
 
+def _ensure_strategy_codecs() -> None:
+    """Import the zoo (idempotent): its leaf codecs register at import."""
+    import repro_torch.compress  # noqa: F401
+
+
 def _leaf_kind(leaf) -> Optional[str]:
     for kind, (leaf_type, _, _) in _LEAF_CODECS.items():
         if isinstance(leaf, leaf_type):
             return kind
     return None
+
+
+def _check_strategy_tag(manifest: Dict[str, Any]) -> None:
+    """Reject an unknown strategy tag or another wire version (CodecError)."""
+    name = manifest.get("strategy")
+    if name is None:
+        return
+    _ensure_strategy_codecs()
+    from repro_torch.compress import available_strategies, strategy_class
+
+    try:
+        cls = strategy_class(name)
+    except KeyError:
+        raise CodecError(f"unknown compression strategy tag {name!r}; "
+                         f"registered zoo: {available_strategies()}") from None
+    sver = int(manifest.get("strategy_version", 0))
+    if sver != cls.wire_version:
+        raise CodecError(f"strategy {name!r} wire version mismatch: payload carries "
+                         f"v{sver}, this zoo speaks v{cls.wire_version}")
+
+
+def _strategy_tag(strategy, kinds_seen) -> Optional[Tuple[str, int]]:
+    """The frame's (strategy, wire_version) stamp, if any."""
+    if strategy is None and not kinds_seen:
+        return None
+    _ensure_strategy_codecs()
+    from repro_torch.compress import strategy_class
+
+    if strategy is not None:
+        if isinstance(strategy, str):
+            cls = strategy_class(strategy)
+            return cls.name, cls.wire_version
+        return strategy.name, strategy.wire_version
+    if len(kinds_seen) > 1:
+        raise CodecError(f"tree mixes strategy leaf kinds {sorted(kinds_seen)}; pass "
+                         f"strategy= explicitly to tag the frame")
+    cls = strategy_class(next(iter(kinds_seen)))
+    return cls.name, cls.wire_version
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,6 +167,8 @@ class PayloadInfo:
     num_compressed: int
     num_delta: int
     base_digest: int  # tree_digest of the delta base; 0 for full payloads
+    strategy: Optional[str] = None  # zoo strategy tag (None: a plain OMC frame)
+    strategy_version: int = 0  # per-strategy wire version (0: untagged)
 
     @property
     def is_delta(self) -> bool:
@@ -372,12 +421,15 @@ def _decode_raw(meta: Dict[str, Any], body: memoryview, off: int, base, device):
 # ---------------------------------------------------------------------------
 
 
-def encode_payload(tree, *, base=None, round_index: int = 0) -> bytes:
+def encode_payload(tree, *, base=None, round_index: int = 0, strategy=None) -> bytes:
     """Serialize a storage tree to a wire payload.
 
     ``base`` (the tree the receiver already holds) switches each leaf to
     sparse XOR-delta encoding when that is smaller; the receiver must then
-    pass the same base to :func:`decode_payload`.
+    pass the same base to :func:`decode_payload`.  ``strategy`` (a
+    ``CompressionStrategy`` or a registered name) stamps the frame with its
+    tag and wire version; a tree holding one kind of strategy leaf is
+    stamped with it unasked.  Untagged frames stay those of wire version 1.
     """
     base_leaves: Dict[str, Any] = {}
     if base is not None:
@@ -386,21 +438,29 @@ def encode_payload(tree, *, base=None, round_index: int = 0) -> bytes:
     manifest: List[Dict[str, Any]] = []
     chunks: List[bytes] = []
     any_delta = False
+    kinds_seen = set()
     for parts, leaf in _flatten(tree):
         bleaf = base_leaves.get(_path_key(parts))
         if is_compressed(leaf):
             meta, ch = _encode_omc(leaf, bleaf)
+        elif (kind := _leaf_kind(leaf)) is not None:
+            meta, ch = _LEAF_CODECS[kind][1](leaf, bleaf)
+            kinds_seen.add(kind)
         elif isinstance(leaf, torch.Tensor):
             meta, ch = _encode_raw(leaf, bleaf)
         else:
-            raise CodecError(f"leaf of type {type(leaf).__name__} at {_path_key(parts)!r}: "
-                             f"strategy-tagged frames are not yet ported (ROADMAP A7)")
+            raise CodecError(f"leaf of type {type(leaf).__name__} at {_path_key(parts)!r} "
+                             f"has no registered leaf codec")
         any_delta |= meta["mode"] == "delta"
         meta["path"] = parts
         manifest.append(meta)
         chunks.extend(ch)
 
-    mjson = json.dumps(dict(leaves=manifest), separators=(",", ":")).encode()
+    frame: Dict[str, Any] = dict(leaves=manifest)
+    tag = _strategy_tag(strategy, kinds_seen)
+    if tag is not None:
+        frame["strategy"], frame["strategy_version"] = tag
+    mjson = json.dumps(frame, separators=(",", ":")).encode()
     body = b"".join(chunks)
     flags = FLAG_DELTA if any_delta else 0
     digest = tree_digest(base) if any_delta else 0
@@ -431,9 +491,7 @@ def _parse_frame(data: bytes) -> Tuple[PayloadInfo, Dict[str, Any], memoryview]:
         leaves = manifest["leaves"]
     except (ValueError, KeyError, TypeError) as e:
         raise CodecError(f"malformed manifest: {e}") from e
-    if manifest.get("strategy") is not None:
-        raise CodecError(f"strategy-tagged payload ({manifest['strategy']!r}): the "
-                         f"compression-strategy zoo is not yet ported (ROADMAP A7)")
+    _check_strategy_tag(manifest)
     info = PayloadInfo(
         version=ver,
         flags=flags,
@@ -445,6 +503,8 @@ def _parse_frame(data: bytes) -> Tuple[PayloadInfo, Dict[str, Any], memoryview]:
         num_compressed=sum(1 for leaf in leaves if leaf["kind"] != "raw"),
         num_delta=sum(1 for leaf in leaves if leaf["mode"] == "delta"),
         base_digest=digest,
+        strategy=manifest.get("strategy"),
+        strategy_version=int(manifest.get("strategy_version", 0)),
     )
     return info, manifest, mview[info.header_bytes:]
 
@@ -476,10 +536,12 @@ def decode_payload(data: bytes, *, base=None, device="cuda") -> Tuple[Any, Paylo
             leaf, off = _decode_omc(meta, body, off, bleaf, device)
         elif meta["kind"] == "raw":
             leaf, off = _decode_raw(meta, body, off, bleaf, device)
-        elif meta["kind"] in _LEAF_CODECS:
-            leaf, off = _LEAF_CODECS[meta["kind"]][2](meta, body, off, bleaf)
         else:
-            raise CodecError(f"unknown leaf kind {meta['kind']!r}")
+            if meta["kind"] not in _LEAF_CODECS:
+                _ensure_strategy_codecs()
+            if meta["kind"] not in _LEAF_CODECS:
+                raise CodecError(f"unknown leaf kind {meta['kind']!r}")
+            leaf, off = _LEAF_CODECS[meta["kind"]][2](meta, body, off, bleaf, device)
         entries.append((parts, leaf))
     if off != info.body_bytes:
         raise CodecError(f"body length mismatch: consumed {off}, have {info.body_bytes}")

@@ -20,8 +20,8 @@ Every session runs on one device, ``cuda`` unless the caller passes
 ``device="cpu"``; without a card the CUDA default raises.  On the card a
 round runs ``quantize_stats`` (``compress_params``), ``dequantize``
 (``decompress_tree``) and ``pack``/``unpack`` (the codec) as kernels.
-Compression strategies (``strategy=``) are not ported yet (ROADMAP A7),
-nor is observability (``obs=``, ROADMAP A9): both raise.
+The sessions' strategy uploads (``strategy=``) are not ported yet (ROADMAP
+A5), nor is observability (``obs=``, ROADMAP A9): both raise.
 """
 
 from __future__ import annotations
@@ -45,6 +45,12 @@ from repro_torch.federated.state import compress_params, state_bytes_report
 from repro_torch.obs import null_span
 
 from . import codecs
+
+
+def _no_strategy(strategy) -> None:
+    if strategy is not None:
+        raise NotImplementedError("the sessions' strategy uploads are not ported yet "
+                                  "(ROADMAP A5)")
 
 
 def _tree_device(tree) -> torch.device:
@@ -161,7 +167,8 @@ class FLSession:
                  seed: int = 0, init_params=None,
                  profile_fn: Optional[Callable[[int], str]] = None, strategy=None, obs=None,
                  device="cuda"):
-        check_unported(strategy=strategy, obs=obs)
+        _no_strategy(strategy)
+        check_unported(obs=obs)
         self.device = session_device(device)
         self.family = family
         self.cfg = cfg
@@ -380,7 +387,7 @@ class FLClient:
 
     def __init__(self, client_id: int, family, cfg, omc: OMCConfig,
                  train_fn: Callable[[Any, int, int], Any], strategy=None, *, device="cuda"):
-        check_unported(strategy=strategy)
+        _no_strategy(strategy)
         self.device = session_device(device)
         self.client_id = client_id
         self.specs = family.param_specs(cfg)

@@ -228,13 +228,18 @@ def _async_state_tree(runner) -> Dict[str, Any]:
     pending tickets still reference, and the trained-but-not-uploaded cache,
     so a killed run resumes mid-buffer with nothing retrained and nothing
     downloaded again.  Keys as the reference's: versions ``str(v)``, the
-    cache ``"v|c"``; the leaf order sorts them as strings, as JAX does."""
-    return dict(
+    cache ``"v|c"``; the leaf order sorts them as strings, as JAX does.
+    Under an error-feedback strategy the per-client residuals ``runner.ef``
+    ride along: a resume needs the residuals of trained, unflushed updates."""
+    tree = dict(
         storage=runner.storage,
         buffer=[e.model for e in runner.buffer],
         versions={str(v): s for v, s in sorted(runner.version_storages.items())},
         trained={f"{v}|{c}": m for (v, c), (m, _) in sorted(runner.trained.items())},
     )
+    if runner.ef is not None:
+        tree["ef"] = dict(runner.ef)
+    return tree
 
 
 def save_async_state(ckpt_dir: str, runner, keep: int = 3) -> str:
@@ -263,7 +268,7 @@ def save_async_state(ckpt_dir: str, runner, keep: int = 3) -> str:
         round_counters={str(c): int(k) for c, k in runner.round_counters.items()},
         population_layout=None,
         trained_losses={f"{v}|{c}": float(l) for (v, c), (_, l) in runner.trained.items()},
-        has_ef=False,
+        has_ef=runner.ef is not None,
         fused_agg=bool(runner.fused_agg),
         history=runner.history,
         stats=(dict(snapshot=runner.stats.snapshot(),
@@ -302,10 +307,12 @@ def restore_async_state(path: str, runner) -> Dict[str, Any]:
             f"layout={extra['population_layout']} but the runner has layout=None — "
             "construct the runner with the same ShardLayout (or None); cross-layout restore "
             "needs an offline reshard (DESIGN.md §14)")
-    if bool(extra.get("has_ef")):
+    has_ef = bool(extra.get("has_ef"))
+    if has_ef != (runner.ef is not None):
         raise ValueError(
-            "error-feedback state mismatch: checkpoint has residuals but the runner lacks "
-            "them — construct the runner with the same strategy= the checkpointed run used")
+            f"error-feedback state mismatch: checkpoint {'has' if has_ef else 'lacks'} "
+            f"residuals but the runner {'lacks' if has_ef else 'has'} them — construct the "
+            "runner with the same strategy= the checkpointed run used")
     entry_t = runner.storage if fused else _decompressed_template(runner.storage)
     template = dict(
         storage=runner.storage,
@@ -313,6 +320,8 @@ def restore_async_state(path: str, runner) -> Dict[str, Any]:
         versions={str(v): runner.storage for v in extra["version_keys"]},
         trained={k: entry_t for k in sorted(extra["trained_losses"])},
     )
+    if has_ef:
+        template["ef"] = dict(runner.ef)
     state, _ = restore_state(path, template)
 
     from repro_torch.federated.async_engine import _BufferEntry, _Pending
@@ -333,6 +342,8 @@ def restore_async_state(path: str, runner) -> Dict[str, Any]:
     runner.version_storages = {int(v): s for v, s in state["versions"].items()}
     runner.trained = {(int(k.split("|")[0]), int(k.split("|")[1])): (state["trained"][k], float(l))
                       for k, l in extra["trained_losses"].items()}
+    if has_ef:
+        runner.ef = dict(state["ef"])
     runner.history = list(extra["history"])
     if extra["stats"] is not None and runner.stats is not None:
         snap = extra["stats"]["snapshot"]

@@ -1,13 +1,10 @@
 """OMC codec: formats, PVT, policy, PPQ, packing, storage, and the threefry
 PRNG the reference's streams come from (port of ``repro.core``).
 
-The package re-exports the reference's names that the port defines.  Six of
-the reference's 35 come with the compression strategies and are not here
-yet (ROADMAP A7): ``FP32``, ``qdq``, ``qdq_ste``, ``qdq_pvt``, ``coverage``
-and ``selection_mask_tree``.
+The package re-exports the reference's 35 names.
 """
 
-from .formats import FloatFormat, decode, encode, value_quantize
+from .formats import FP32, FloatFormat, decode, encode, qdq, qdq_ste, value_quantize
 from .omc import (
     OMCConfig,
     bytes_report,
@@ -18,8 +15,8 @@ from .omc import (
 )
 from .packing import pack, packed_bytes, packed_words, unpack
 from .partial import ppq_mask, ppq_masks_batch
-from .policy import QuantizePolicy, quantizable_names
-from .pvt import pvt_apply, pvt_solve, pvt_solve_fast
+from .policy import QuantizePolicy, coverage, quantizable_names, selection_mask_tree
+from .pvt import pvt_apply, pvt_solve, pvt_solve_fast, qdq_pvt
 from .store import (
     CompressedVariable,
     compress_tree,
@@ -32,6 +29,7 @@ from .store import (
 )
 
 __all__ = [
+    "FP32",
     "FloatFormat",
     "OMCConfig",
     "QuantizePolicy",
@@ -40,6 +38,7 @@ __all__ = [
     "compress",
     "compress_tree",
     "compress_variable",
+    "coverage",
     "decode",
     "decompress",
     "decompress_tree",
@@ -55,8 +54,12 @@ __all__ = [
     "pvt_apply",
     "pvt_solve",
     "pvt_solve_fast",
+    "qdq",
+    "qdq_pvt",
     "qdq_pvt_leaf",
+    "qdq_ste",
     "quantizable_names",
+    "selection_mask_tree",
     "tree_bytes_report",
     "unpack",
     "unpack_from_transport",

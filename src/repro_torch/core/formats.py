@@ -103,6 +103,9 @@ class FloatFormat:
         return self.exp_bits == 8 and self.mant_bits == 23
 
 
+FP32 = FloatFormat(8, 23)
+
+
 # Signed twins of the wide unsigned containers: same width, full op support.
 SIGNED_TWIN = {torch.uint16: torch.int16, torch.uint32: torch.int32}
 
@@ -231,3 +234,14 @@ def decode(code: torch.Tensor, fmt: FloatFormat) -> torch.Tensor:
 
     out = torch.where(ef == 0, torch.where(m == 0, signed_zero, sub), nrm)
     return torch.where(ef == (1 << y) - 1, special, out)
+
+
+def qdq(x: torch.Tensor, fmt: FloatFormat) -> torch.Tensor:
+    """Quantize-dequantize simulation (equals ``value_quantize``)."""
+    return value_quantize(x, fmt)
+
+
+def qdq_ste(x: torch.Tensor, fmt: FloatFormat) -> torch.Tensor:
+    """Quantize-dequantize with a straight-through gradient: the reference's
+    ``x + stop_gradient(q - x)``, whose f32 value is not always ``q``."""
+    return x + (value_quantize(x, fmt) - x).detach()

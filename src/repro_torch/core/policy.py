@@ -10,7 +10,7 @@ import dataclasses
 import re
 from typing import Any, List, Optional, Sequence, Tuple
 
-from .tree import tree_items
+from .tree import tree_items, tree_map_with_path
 
 
 def path_str(path: Sequence[Any]) -> str:
@@ -59,3 +59,20 @@ class QuantizePolicy:
 def quantizable_names(params, policy: QuantizePolicy) -> List[str]:
     """Paths of the leaves ``policy`` selects, in leaf order."""
     return [path_str(p) for p, leaf in tree_items(params) if policy.selects(path_str(p), leaf)]
+
+
+def selection_mask_tree(params, policy: QuantizePolicy):
+    """Tree of Python bools: True where ``policy`` selects the leaf."""
+    return tree_map_with_path(lambda p, leaf: policy.selects(path_str(p), leaf), params)
+
+
+def coverage(params, policy: QuantizePolicy) -> float:
+    """Fraction of parameters (by count) that ``policy`` selects."""
+    sel = tot = 0
+    for p, leaf in tree_items(params):
+        if not hasattr(leaf, "numel"):
+            continue
+        tot += leaf.numel()
+        if policy.selects(path_str(p), leaf):
+            sel += leaf.numel()
+    return sel / max(tot, 1)

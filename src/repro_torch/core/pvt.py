@@ -20,6 +20,8 @@ from typing import Tuple
 
 import torch
 
+from .formats import FloatFormat, value_quantize
+
 
 def pvt_from_sums(sums: torch.Tensor, n: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Closed-form (s, b) from ``sums[..., 4] = [ΣV, ΣṼ, ΣVṼ, ΣṼ²]`` over n values.
@@ -94,3 +96,10 @@ def pvt_solve_fast(
 def pvt_apply(v_tilde: torch.Tensor, s: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """V̄ = s·Ṽ + b (s, b broadcast against Ṽ), multiply then add, unfused."""
     return v_tilde * s + b
+
+
+def qdq_pvt(v: torch.Tensor, fmt: FloatFormat) -> torch.Tensor:
+    """Quantize-dequantize with the PVT correction (exact solver) applied."""
+    vt = value_quantize(v, fmt)
+    s, b = pvt_solve(v, vt)
+    return pvt_apply(vt, s, b)

@@ -1,5 +1,5 @@
 """Wire-byte accounting shared by the loop, the engine and the async runtime
-(port of ``repro.federated.accounting``, without the strategy ledgers).
+(port of ``repro.federated.accounting``).
 
 A :class:`WireTable` is built once per model from the f32 parameter tree:
 one row per policy-selected variable, in the order ``ppq_mask`` indexes
@@ -13,9 +13,11 @@ them.  Per-round bytes then follow from the PPQ masks alone:
 
 The masks equal the reference's bit for bit (``core.prng``), so the ledgers
 equal its ledgers byte for byte.  :class:`AsyncWireStats` is the async
-runtime's event-granular ledger.  The strategy sizes wait for the
-strategies (ROADMAP A7); ``StreamLedger`` belongs to the streamed round of
-``scale/stream``, not ported yet (ROADMAP A9).
+runtime's event-granular ledger.  Under a compression strategy
+(``repro_torch.compress``, DESIGN.md §12) the per-variable sizes come from
+the strategy's ``plan_wire_bytes``; a strategy whose size depends on the
+data (``pipeline``) raises ``ValueError``.  ``StreamLedger`` belongs to the
+streamed round of ``scale/stream``, not ported yet (ROADMAP A9).
 """
 
 from __future__ import annotations
@@ -35,11 +37,6 @@ from repro_torch.core.tree import tree_items
 from .state import n_stack_axes, selected
 
 _PVT_BYTES_PER_ENTRY = 8  # s and b, f32 each — matches the codec and store
-
-
-def _no_strategy(strategy) -> None:
-    if strategy is not None:
-        raise NotImplementedError("compression strategies are not ported yet (ROADMAP A7)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,6 +80,35 @@ class WireTable:
         if m.shape != (self.num_vars,):
             raise ValueError(f"mask has shape {m.shape}, expected ({self.num_vars},)")
         return int(np.where(m, self._packed(omc), self._fp32_vars()).sum()) + self.raw_bytes
+
+    # -- strategy budgets (DESIGN.md §11) -------------------------------------
+
+    def strategy_var_bytes(self, strategy) -> np.ndarray:
+        """int64[V]: per-variable wire bytes under a zoo strategy, from its
+        ``plan_wire_bytes``; raises for a data-dependent strategy (measure an
+        encoded tree with ``repro_torch.compress.tree_wire_bytes``)."""
+        rows = [strategy.plan_wire_bytes(n, sb)
+                for n, sb in zip(self.n_elems, self.stack_entries)]
+        if any(r is None for r in rows):
+            raise ValueError(f"strategy {strategy.name!r} has data-dependent wire bytes; "
+                             f"measure an encoded tree with repro_torch.compress.tree_wire_bytes")
+        return np.asarray(rows, np.int64)
+
+    def download_bytes_strategy(self, strategy) -> int:
+        """The full model's download with every selected variable under
+        ``strategy`` (``download_bytes(omc)`` for the OMC strategy)."""
+        return int(self.strategy_var_bytes(strategy).sum()) + self.raw_bytes
+
+    def upload_bytes_strategy(self, strategy, mask=None) -> int:
+        """Upload bytes under ``strategy``; with a PPQ ``mask`` the unmasked
+        variables travel f32."""
+        sizes = self.strategy_var_bytes(strategy)
+        if mask is not None:
+            m = np.asarray(mask, bool)
+            if m.shape != (self.num_vars,):
+                raise ValueError(f"mask has shape {m.shape}, expected ({self.num_vars},)")
+            sizes = np.where(m, sizes, self._fp32_vars())
+        return int(sizes.sum()) + self.raw_bytes
 
 
 def walk_selected(params_f32, specs, omc: OMCConfig):
@@ -139,11 +165,37 @@ def cohort_upload_bytes(table: WireTable, omc: OMCConfig, round_index: int,
     return per_var.sum(axis=1) + table.raw_bytes
 
 
+def client_upload_bytes_strategy(table: WireTable, omc: OMCConfig, strategy,
+                                 round_index: int, client_id: int) -> int:
+    """One client's upload bytes when training under a zoo strategy: the
+    variables whose PPQ bit is set travel strategy-encoded, the rest f32."""
+    if not omc.enabled or table.num_vars == 0:
+        return table.fp32_total
+    mask = ppq_mask(omc.ppq_key(), round_index, client_id, table.num_vars,
+                    omc.quantize_fraction)
+    return table.upload_bytes_strategy(strategy, mask.numpy())
+
+
+def cohort_upload_bytes_strategy(table: WireTable, omc: OMCConfig, strategy,
+                                 round_index: int, client_ids: Sequence[int]) -> np.ndarray:
+    """Batched (engine) counterpart of :func:`client_upload_bytes_strategy`."""
+    c = len(client_ids)
+    if not omc.enabled or table.num_vars == 0:
+        return np.full((c,), table.fp32_total, np.int64)
+    masks = ppq_masks_batch(omc.ppq_key(), round_index, client_ids, table.num_vars,
+                            omc.quantize_fraction).numpy()
+    sizes = table.strategy_var_bytes(strategy)
+    per_var = np.where(masks, sizes[None, :], table._fp32_vars()[None, :])
+    return per_var.sum(axis=1) + table.raw_bytes
+
+
 def download_bytes_train(table: WireTable, omc: OMCConfig, strategy=None) -> int:
-    """Per-client download bytes when training (no strategy: the ordinary
-    ``download_bytes``)."""
-    _no_strategy(strategy)
-    return table.download_bytes(omc)
+    """Per-client download bytes when training under ``strategy``: upload-only
+    strategies (top-k, ternary, pipeline) download the dense at-rest state,
+    ``download_bytes(omc)``; dense ones re-encode it under their format."""
+    if strategy is None or strategy.upload_only:
+        return table.download_bytes(omc)
+    return table.download_bytes_strategy(strategy)
 
 
 @dataclasses.dataclass
@@ -161,8 +213,10 @@ class AsyncWireStats:
     deployment must provision.  Sizes come from the same :class:`WireTable`
     rows as the sync paths, so the totals equal theirs byte for byte.
 
-    ``strategy`` (training under a compression strategy) raises until the
-    strategies are ported (ROADMAP A7).
+    ``strategy`` switches the ledger to training-under-strategy sizes:
+    uploads through :func:`client_upload_bytes_strategy` per ``(round,
+    client)`` PPQ mask, downloads through :func:`download_bytes_train`.  For
+    the OMC strategy that is the plain ledger, byte for byte.
     """
 
     table: WireTable
@@ -179,17 +233,17 @@ class AsyncWireStats:
     n_dropped: int = 0
     _pending: dict = dataclasses.field(default_factory=dict, repr=False)
 
-    def __post_init__(self):
-        _no_strategy(self.strategy)
-
     def _up(self, omc: OMCConfig, round_index: int, client_id: int) -> int:
+        if self.strategy is not None:
+            return client_upload_bytes_strategy(self.table, omc, self.strategy, round_index,
+                                                client_id)
         return client_upload_bytes(self.table, omc, round_index, client_id)
 
     def start_round(self, omc: OMCConfig, round_index: int, client_id: int) -> None:
         """Client checked in: the full download now, the upload committed.
         ``round_index`` is the client's own round counter (it keys the PPQ
         mask), not the server version."""
-        down = download_bytes_train(self.table, omc)
+        down = download_bytes_train(self.table, omc, self.strategy)
         up = self._up(omc, round_index, client_id)
         self.down_bytes += down
         self.n_downloads += 1

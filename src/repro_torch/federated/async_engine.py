@@ -33,9 +33,13 @@ Checkpoints of the whole runtime state (buffer, version storages, pending
 tickets, trace counters, ledger) are
 :func:`repro_torch.checkpoint.save_async_state` /
 :func:`~repro_torch.checkpoint.restore_async_state`.  ``strategy`` and
-``ste`` raise until the strategies are ported (ROADMAP A7), ``obs`` and
-``population`` until observability and the population store are (ROADMAP
-A9).
+``ste`` train the lanes under a zoo compressor (DESIGN.md §12); under an
+error-feedback strategy ``runner.ef`` holds one residual row per client,
+which each lane gathers before it trains and writes back after (the lanes
+train one after another, so no pad lane exists to discard), and the
+checkpoint carries it.  ``fused_agg=True`` with a strategy raises, as in
+the reference.  ``obs`` and ``population`` raise until observability and
+the population store are ported (ROADMAP A9).
 """
 
 from __future__ import annotations
@@ -224,14 +228,13 @@ class AsyncRunner:
                  data_fn: Callable[[Any, Any, Any], Any], init_key=None, init_params=None,
                  wire: bool = True, strategy=None, ste: bool = False, fused_agg: bool = False,
                  population=None, obs=None, device="cuda"):
-        check_unported(strategy, ste)
         if population is not None:
             raise NotImplementedError("population-backed counters (population=) wait for "
                                       "scale.store (ROADMAP A9)")
         check_unported(obs=obs)
         if init_key is None and init_params is None:
             raise ValueError("need init_key or init_params")
-        if fused_agg and not omc.enabled:
+        if fused_agg and (strategy is not None or not omc.enabled):
             raise ValueError("fused_agg=True needs OMC enabled and no zoo strategy "
                              "(DESIGN.md §13)")
         cohort_lib.validate_report_goal(acfg.buffer_goal, num_clients, what="buffer_goal")
@@ -243,14 +246,22 @@ class AsyncRunner:
         self.specs = family.param_specs(cfg)
         params, self.storage = simulate.init_storage(family, cfg, omc, self.specs, init_key,
                                                      init_params, device)
-        self._client_fn = simulate.make_client_fn(family, cfg, self.specs, omc, sim)
+        # training under a strategy (DESIGN.md §12): residuals live per client
+        # here and are checkpointed with the rest of the runtime state
+        self.strategy, self.ste = strategy, ste
+        takes_ef = simulate.ef_lib.takes_residual(omc, strategy)
+        self.ef = (simulate.ef_lib.init_ef_state(params, self.specs, omc, self.num_clients)
+                   if takes_ef else None)
+        self._client_fn = simulate.make_client_fn(family, cfg, self.specs, omc, sim, strategy,
+                                                  ste, takes_residual=takes_ef)
         # fused mode (§13): buffer entries live transport-encoded and the
         # flush aggregates in the compressed domain
         self.fused_agg = bool(fused_agg)
         make = make_fused_flush_fn if self.fused_agg else make_flush_fn
         self._flush_fn = make(self.specs, omc, sim)
         self.stats = (accounting.AsyncWireStats(
-            accounting.build_wire_table(params, self.specs, omc)) if wire else None)
+            accounting.build_wire_table(params, self.specs, omc), strategy=strategy)
+            if wire else None)
         del params
 
         # --- mutable runtime state (checkpointed as a unit) ---------------
@@ -369,7 +380,14 @@ class AsyncRunner:
                 server_f32 = decompress_tree(self.version_storages[base])
             for c, rnd in group:
                 batches = simulate.client_batches(self.data_fn, c, rnd, self.sim.local_steps)
-                model, loss = self._client_fn(server_f32, batches, rnd, c)
+                if self.ef is not None:
+                    model, loss, rows = self._client_fn(server_f32, batches, rnd, c,
+                                                        {k: v[c] for k, v in self.ef.items()})
+                    for k, v in self.ef.items():
+                        v[c] = rows[k]
+                    del rows
+                else:
+                    model, loss = self._client_fn(server_f32, batches, rnd, c)
                 if self.fused_agg:
                     # transport-encode at once (§13): the cached upload, and
                     # later the buffer, holds codes, not f32 trees

@@ -23,10 +23,16 @@ Semantics kept from the reference:
     (also the async runtime's fused flush): one ``ops.fused_aggregate``
     launch per compressed leaf; unselected leaves keep the f32 mean.
 
-``strategy``, ``ste``, ``ef`` and ``obs`` belong to later slices (ROADMAP
-A7, A9) and raise ``NotImplementedError``; ``data_mode`` is accepted for
-the reference's signature, and both modes draw batches on the host side of
-the loop.
+``strategy`` and ``ste`` train every tier's clients under a zoo
+compressor (DESIGN.md §12), through the loop's client body; under an
+error-feedback strategy ``ef`` holds the population's residuals, each
+client gathering its rows before it trains and the surviving clients'
+rows written back after (a dead client keeps its residual, as in the
+reference).  A strategy runs the unfused server round: ``fused_agg=True``
+with a strategy raises ``ValueError``, as in the reference.  ``obs``
+belongs to a later slice (ROADMAP A9) and raises ``NotImplementedError``;
+``data_mode`` is accepted for the reference's signature, and both modes
+draw batches on the host side of the loop.
 """
 
 from __future__ import annotations
@@ -278,24 +284,28 @@ def make_round_fn(family, cfg, specs, omc: OMCConfig, sim: SimConfig, spec: Coho
                   strategy=None, ste: bool = False, fused_agg: bool = False,
                   collect_metrics: bool = False):
     """Build the engine's round:
-    ``(storage, ids_per_tier, alive, round_index) -> (new_storage, loss, n_alive)``.
+    ``(storage, ids_per_tier, alive, round_index, ef=None) -> (new_storage,
+    loss, n_alive)``.
 
     Server decompress, the clients of every tier (each drawing its batches
     from ``data_fn(client, round, step)``), the zero-weight FedAvg, the
     server step and the re-compress — or, with ``fused_agg``, the
     compressed-domain server round.  ``loss`` and ``n_alive`` are 0-d
-    tensors on the device.
+    tensors on the device.  Under an error-feedback strategy the round
+    takes the population's residuals ``ef`` and updates the surviving
+    clients' rows in place.
     """
     if data_mode not in ("vmap", "host"):
         raise ValueError(f"data_mode must be 'vmap' or 'host', got {data_mode!r}")
-    check_unported(strategy, ste)
     if collect_metrics:
         raise NotImplementedError("metric bundles (collect_metrics) are not ported yet "
                                   "(ROADMAP A9)")
     if fused_agg and not fused_aggregation_supported(spec, omc, strategy):
         raise ValueError("fused_agg=True needs a homogeneous cohort, OMC enabled, and no "
                          "compression strategy")
-    ones = [simulate.make_client_fn(family, cfg, specs, omc_t, sim)
+    takes_ef = simulate.ef_lib.takes_residual(omc, strategy)
+    ones = [simulate.make_client_fn(family, cfg, specs, omc_t, sim, strategy, ste,
+                                    takes_residual=takes_ef)
             for omc_t in spec.tier_omcs(omc)]
 
     def losses_and_weights(loss_c, alive):
@@ -323,9 +333,12 @@ def make_round_fn(family, cfg, specs, omc: OMCConfig, sim: SimConfig, spec: Coho
         encoded = tree_map_with_path(encode, specs, storage, stacked)
         return fused_server_step(storage, encoded, w, specs, omc, sim.server_lr), loss, n_alive
 
-    def round_fn(storage, ids_per_tier, alive, round_index: int):
+    def round_fn(storage, ids_per_tier, alive, round_index: int, ef=None):
+        if takes_ef and ef is None:
+            raise ValueError("this round trains under an error-feedback strategy: pass ef=")
         with torch.no_grad():
             server_f32 = decompress_tree(storage)
+        alive_l = alive.tolist()
         # each client's model goes into its row of the cohort's stacks as
         # soon as it is trained, so the cohort's models are held once
         stacked, losses = None, []
@@ -333,7 +346,15 @@ def make_round_fn(family, cfg, specs, omc: OMCConfig, sim: SimConfig, spec: Coho
         for one, ids_t in zip(ones, ids_per_tier):
             for cid in ids_t.tolist():
                 batches = simulate.client_batches(data_fn, cid, round_index, sim.local_steps)
-                m, loss = one(server_f32, batches, round_index, cid)
+                if takes_ef:
+                    m, loss, rows = one(server_f32, batches, round_index, cid,
+                                        {k: v[cid] for k, v in ef.items()})
+                    if alive_l[len(losses)]:  # a dead client keeps its residual
+                        for k, v in ef.items():
+                            v[cid] = rows[k]
+                    del rows
+                else:
+                    m, loss = one(server_f32, batches, round_index, cid)
                 with torch.no_grad():
                     stacked = simulate.stack_into(stacked, len(losses), m, n)
                 del m
@@ -353,20 +374,27 @@ def run_round_vectorized(family, cfg, specs, omc: OMCConfig, sim: SimConfig, ser
                          fused_agg: bool = False, obs=None) -> Tuple[Any, Dict[str, float]]:
     """One round; returns ``(new server storage, metrics)``.  Dead clients
     contribute weight 0 (the same mean as dropping them); the server
-    interpolates toward the cohort mean and re-compresses."""
-    check_unported(strategy, ste, ef, obs)
+    interpolates toward the cohort mean and re-compresses.  ``strategy``,
+    ``ste`` and ``ef`` as in the loop (``simulate.run_round``): an EF
+    strategy without ``ef`` raises ``ValueError``."""
+    check_unported(obs)
+    takes_ef = simulate.ef_lib.takes_residual(omc, strategy)
+    if takes_ef and ef is None:
+        raise ValueError(f"strategy {strategy.label!r} uses error feedback: pass the ef= "
+                         f"state (repro_torch.compress.feedback.init_ef_state)")
     if round_fn is None:
         round_fn = make_round_fn(family, cfg, specs, omc, sim, spec, data_fn, data_mode,
-                                 fused_agg=fused_agg)
+                                 strategy=strategy, ste=ste, fused_agg=fused_agg)
     ids_per_tier = sample_tiered_cohort(key, spec, round_index)
     alive = cohort_lib.survival_mask(key, spec.plan, round_index)
-    new_storage, loss, n_alive = round_fn(server_params, ids_per_tier, alive, round_index)
+    new_storage, loss, n_alive = round_fn(server_params, ids_per_tier, alive, round_index,
+                                          **(dict(ef=ef) if takes_ef else {}))
     n_alive = int(n_alive)
     metrics: Dict[str, float] = dict(loss=float(loss), cohort=n_alive,
                                      dropped=int(spec.plan.cohort_size - n_alive))
     if wire_table is not None:
         metrics.update(round_wire_metrics(wire_table, omc, spec.tier_omcs(omc), ids_per_tier,
-                                          alive, round_index))
+                                          alive, round_index, strategy=strategy))
     return new_storage, metrics
 
 
@@ -375,14 +403,20 @@ def round_wire_metrics(table: accounting.WireTable, omc: OMCConfig,
                        alive: torch.Tensor, round_index: int, strategy=None) -> Dict[str, int]:
     """Exact per-round wire bytes: every invited client downloads the
     compressed server state; every surviving client uploads its PPQ-masked,
-    tier-format transport payload."""
+    tier-format transport payload.  With ``strategy`` the upload sizes come
+    from the strategy's plan (a data-dependent one raises)."""
     invited = sum(len(i) for i in ids_per_tier)
     down = accounting.download_bytes_train(table, omc, strategy) * invited
     alive_np = np.asarray(alive.cpu().numpy(), bool)
     up, off = 0, 0
     for omc_t, ids_t in zip(tier_omcs, ids_per_tier):
         q = len(ids_t)
-        per_client = accounting.cohort_upload_bytes(table, omc_t, round_index, ids_t.tolist())
+        if strategy is None:
+            per_client = accounting.cohort_upload_bytes(table, omc_t, round_index,
+                                                        ids_t.tolist())
+        else:
+            per_client = accounting.cohort_upload_bytes_strategy(table, omc_t, strategy,
+                                                                 round_index, ids_t.tolist())
         up += int(per_client[alive_np[off:off + q]].sum())
         off += q
     return dict(down_bytes=int(down), up_bytes=int(up))
@@ -398,13 +432,16 @@ def run_training_vectorized(family, cfg, omc: OMCConfig, sim: SimConfig, spec: C
                             device="cuda"):
     """Mirror of :func:`simulate.run_training` through the engine.  History
     rows carry ``down_bytes`` / ``up_bytes`` when ``wire=True``.  Runs where
-    ``init_params`` lie, else on ``device`` (default the card)."""
-    check_unported(strategy, ste, ef, obs)
+    ``init_params`` lie, else on ``device`` (default the card).  Under an EF
+    strategy ``ef`` is updated in place (allocated here when None)."""
+    check_unported(obs)
     specs = family.param_specs(cfg)
     params, storage = simulate.init_storage(family, cfg, omc, specs, init_key, init_params,
                                             device)
     round_fn = make_round_fn(family, cfg, specs, omc, sim, spec, data_fn, data_mode,
-                             fused_agg=fused_agg)
+                             strategy=strategy, ste=ste, fused_agg=fused_agg)
+    if ef is None and simulate.ef_lib.takes_residual(omc, strategy):
+        ef = simulate.ef_lib.init_ef_state(params, specs, omc, spec.plan.num_clients)
     table = accounting.build_wire_table(params, specs, omc) if wire else None
     del params
     key = prng.fold_in(init_key, 0xC047)
@@ -412,7 +449,8 @@ def run_training_vectorized(family, cfg, omc: OMCConfig, sim: SimConfig, spec: C
     for r in range(num_rounds):
         storage, metrics = run_round_vectorized(family, cfg, specs, omc, sim, storage, data_fn,
                                                 spec, r, key, round_fn=round_fn,
-                                                wire_table=table, data_mode=data_mode)
+                                                wire_table=table, data_mode=data_mode,
+                                                strategy=strategy, ste=ste, ef=ef)
         if eval_fn is not None and (r + 1) % eval_every == 0:
             metrics["eval"] = float(eval_fn(decompress_tree(storage), r))
         history.append(dict(round=r, **metrics))

@@ -15,9 +15,18 @@ The numerics reference the engine is held against:
   * the server averages the client models over the survivors, interpolates
     with ``server_lr`` and re-compresses its state.
 
-Compression strategies, straight-through estimation, error feedback and
-observability (``strategy``, ``ste``, ``ef``, ``obs``) belong to later
-slices (ROADMAP A7, A9) and raise ``NotImplementedError``.
+Every entry point also takes ``strategy=`` (a
+``repro_torch.compress.CompressionStrategy``) to train under a zoo
+compressor instead of the hardcoded OMC qdq (DESIGN.md §12).
+``strategy=None`` is the path above, and ``strategy=get_strategy("omc")``
+gives the same bits.  Dense strategies replace the masked qdq view in both
+directions; sparse upload-only ones (top-k, ternary, pipeline) train on the
+dense download and compress the update ``trained - received`` on the way up,
+with a per-client error-feedback residual (``ef``,
+``repro_torch.compress.feedback``) where the strategy keeps one.  ``ste``
+takes the straight-through form of the strategy's qdq.  Observability
+(``obs``) belongs to a later slice (ROADMAP A9) and raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -37,16 +46,26 @@ from repro_torch.models.common import IDENTITY_MAT
 
 from . import accounting
 from . import cohort as cohort_lib
-from .state import compress_params
+from .state import compress_params, n_stack_axes
 
 
-def check_unported(strategy=None, ste: bool = False, ef=None, obs=None) -> None:
+def check_unported(obs=None) -> None:
     """Raise for the arguments of later slices instead of ignoring them."""
-    if strategy is not None or ste or ef is not None:
-        raise NotImplementedError("compression strategies, STE and error feedback are not "
-                                  "ported yet (ROADMAP A7)")
     if obs is not None:
         raise NotImplementedError("observability (obs=) is not ported yet (ROADMAP A9)")
+
+
+class _LazyEF:
+    """``repro_torch.compress.feedback``, imported at first use: the package
+    imports the codec, which imports this package."""
+
+    def __getattr__(self, name):
+        from repro_torch.compress import feedback
+
+        return getattr(feedback, name)
+
+
+ef_lib = _LazyEF()
 
 
 def stack_trees(trees):
@@ -91,24 +110,76 @@ def stack_into(stacked, i: int, tree, n: int):
     return tree_map(copy, stacked, tree)
 
 
-def client_view(params_f32, specs, omc: OMCConfig, round_index: int, client_id: int,
-                strategy=None, ste: bool = False):
-    """The client's PPQ-masked quantize→dequantize(+PVT) view of ``params_f32``."""
-    check_unported(strategy, ste)
-    if not omc.enabled:
-        return params_f32
+def _masks(params_f32, specs, omc: OMCConfig, round_index: int, client_id: int):
+    """``{selected path: PPQ bit}`` of one client in one round (empty when
+    nothing is selected)."""
     names = accounting.selected_names(params_f32, specs, omc)
     if not names:
-        return params_f32
+        return {}
     mask = ppq_mask(omc.ppq_key(), round_index, client_id, len(names),
                     omc.quantize_fraction).tolist()
-    index = {n: i for i, n in enumerate(names)}
+    return dict(zip(names, mask))
 
-    def f(path, leaf):
-        i = index.get(path_str(path))
-        return qdq_pvt_leaf(leaf, omc) if i is not None and mask[i] else leaf
 
-    return tree_map_with_path(f, params_f32)
+def client_view(params_f32, specs, omc: OMCConfig, round_index: int, client_id: int,
+                strategy=None, ste: bool = False):
+    """The client's PPQ-masked quantize→dequantize(+PVT) view of ``params_f32``.
+
+    Under a zoo ``strategy`` the masked variables go through its
+    ``train_qdq_leaf`` (or the straight-through form with ``ste``) instead;
+    an upload-only strategy leaves the download as it is."""
+    if not omc.enabled or (strategy is not None and strategy.upload_only):
+        return params_f32
+    bits = _masks(params_f32, specs, omc, round_index, client_id)
+    if not bits:
+        return params_f32
+    if strategy is not None:
+        qdq = strategy.train_qdq_ste_leaf if ste else strategy.train_qdq_leaf
+
+    def f(path, spec, leaf):
+        if not bits.get(path_str(path), False):
+            return leaf
+        if strategy is None:
+            return qdq_pvt_leaf(leaf, omc)
+        return qdq(leaf, batch_axes=n_stack_axes(spec, leaf))
+
+    return tree_map_with_path(f, specs, params_f32)
+
+
+def strategy_upload(trained, received, residual, specs, omc: OMCConfig, strategy,
+                    round_index: int, client_id: int, ste: bool = False):
+    """The upload rule of a sparse (upload-only) strategy (DESIGN.md §12).
+
+    The client sends its update ``delta = trained - received`` through the
+    strategy's qdq under its PPQ mask; the server sees ``received + sent``.
+    With error feedback, ``residual`` (this client's rows, ``{path:
+    tensor}``) is added before compressing and what was dropped comes back
+    as the new residual; without it ``residual`` is returned unchanged.
+    Returns ``(model, new_residual)``."""
+    if not omc.enabled:
+        return trained, dict(residual or {})
+    bits = _masks(trained, specs, omc, round_index, client_id)
+    if not bits:
+        return trained, dict(residual or {})
+    use_ef = bool(strategy.error_feedback) and residual is not None
+    qdq = strategy.train_qdq_ste_leaf if ste else strategy.train_qdq_leaf
+    new_residual: Dict[str, Any] = {}
+
+    def f(path, spec, t, rcv):
+        name = path_str(path)
+        if name not in bits:
+            return t  # unselected variables travel f32 and arrive exact
+        delta = t - rcv
+        ax = n_stack_axes(spec, t)
+        if use_ef:
+            sent, new_residual[name] = ef_lib.compensate_leaf(
+                strategy, delta, residual[name], bits[name], batch_axes=ax, ste=ste)
+        else:
+            sent = qdq(delta, batch_axes=ax) if bits[name] else delta
+        return rcv + sent
+
+    out = tree_map_with_path(f, specs, trained, received)
+    return out, (new_residual if use_ef else dict(residual or {}))
 
 
 @dataclasses.dataclass
@@ -142,20 +213,47 @@ def sgd_steps(family, cfg, params, batches, lr: float) -> Tuple[Any, torch.Tenso
 def make_client_fn(family, cfg, specs, omc: OMCConfig, sim: SimConfig, strategy=None,
                    ste: bool = False, takes_residual: Optional[bool] = None):
     """Single-client round body:
-    ``(server_f32, batches, round, client_id) -> (model, mean loss)``.
+    ``(server_f32, batches, round, client_id) -> (model, mean loss)``; with
+    ``takes_residual`` (by default ``feedback.takes_residual(omc, strategy)``)
+    the client's residual rows are threaded through:
+    ``(..., residual) -> (model, mean loss, new_residual)``.
 
     ``batches`` is a list of ``local_steps`` batches.  The loop
-    (:func:`run_round`) and the engine (``federated.engine``) both run this
-    one body, which is what the engine's equivalence rests on.
+    (:func:`run_round`), the engine and the async runtime all run this one
+    body, which is what their equivalence rests on.  A tier whose ``omc`` is
+    disabled passes the residual rows through unchanged.
     """
-    check_unported(strategy, ste, ef=True if takes_residual else None)
+    if takes_residual is None:
+        takes_residual = ef_lib.takes_residual(omc, strategy)
+    sparse = strategy is not None and strategy.upload_only
+
+    def train(server_f32, batches, round_index, client_id):
+        eff = client_view(server_f32, specs, omc, round_index, client_id, strategy, ste)
+        trained, losses = sgd_steps(family, cfg, eff, batches, sim.client_lr)
+        return eff, trained, losses.mean()
+
+    if takes_residual:
+
+        def client_update_ef(server_f32, batches, round_index: int, client_id: int, residual):
+            eff, trained, loss = train(server_f32, batches, round_index, client_id)
+            with torch.no_grad():
+                out, new_residual = strategy_upload(trained, eff, residual, specs, omc,
+                                                    strategy, round_index, client_id, ste)
+            return out, loss, new_residual
+
+        return client_update_ef
 
     def client_update(server_f32, batches, round_index: int, client_id: int):
-        eff = client_view(server_f32, specs, omc, round_index, client_id)
-        trained, losses = sgd_steps(family, cfg, eff, batches, sim.client_lr)
+        eff, trained, loss = train(server_f32, batches, round_index, client_id)
         with torch.no_grad():
-            out = client_view(trained, specs, omc, round_index, client_id)
-        return out, losses.mean()
+            if sparse and omc.enabled:
+                # a sparse strategy without error feedback: the raw update
+                out, _ = strategy_upload(trained, eff, None, specs, omc, strategy,
+                                         round_index, client_id, ste)
+            else:
+                # the transport compression: re-quantize under the same mask
+                out = client_view(trained, specs, omc, round_index, client_id, strategy, ste)
+        return out, loss
 
     return client_update
 
@@ -179,26 +277,43 @@ def run_round(family, cfg, specs, omc: OMCConfig, sim: SimConfig, server_params,
 
     ``wire_table`` adds exact per-round ``down_bytes`` / ``up_bytes``,
     computed one client at a time (the engine computes them batched; the
-    two are equal to the byte)."""
-    check_unported(strategy, ste, ef, obs)
+    two are equal to the byte).  ``strategy``/``ste`` train under a zoo
+    compressor; ``ef`` is the population's error-feedback state
+    (``feedback.init_ef_state``), whose rows of the surviving clients are
+    updated in place, and an EF strategy without it raises ``ValueError``."""
+    check_unported(obs)
+    takes_ef = ef_lib.takes_residual(omc, strategy)
+    if takes_ef and ef is None:
+        raise ValueError(f"strategy {strategy.label!r} uses error feedback: pass the ef= "
+                         f"state (repro_torch.compress.feedback.init_ef_state)")
     with torch.no_grad():
         server_f32 = decompress_tree(server_params)
     ids = cohort_lib.sample_cohort(key, plan, round_index).tolist()
     alive = cohort_lib.survival_mask(key, plan, round_index).tolist()
     if client_update is None:
-        client_update = make_client_update(family, cfg, specs, omc, sim)
+        client_update = make_client_update(family, cfg, specs, omc, sim, strategy, ste)
 
     models, losses = [], []
     up_bytes = 0
     for cid, ok in zip(ids, alive):
         if not ok:
             continue
-        m, loss = client_update(server_f32, client_batches(data_fn, cid, round_index,
-                                                           sim.local_steps), round_index, cid)
+        batches = client_batches(data_fn, cid, round_index, sim.local_steps)
+        if takes_ef:
+            m, loss, rows = client_update(server_f32, batches, round_index, cid,
+                                          {k: v[cid] for k, v in ef.items()})
+            for k, v in ef.items():
+                v[cid] = rows[k]
+        else:
+            m, loss = client_update(server_f32, batches, round_index, cid)
         models.append(m)
         losses.append(float(loss))
         if wire_table is not None:
-            up_bytes += accounting.client_upload_bytes(wire_table, omc, round_index, cid)
+            if strategy is None:
+                up_bytes += accounting.client_upload_bytes(wire_table, omc, round_index, cid)
+            else:
+                up_bytes += accounting.client_upload_bytes_strategy(wire_table, omc, strategy,
+                                                                    round_index, cid)
 
     with torch.no_grad():
         dev = next(tree_items(models[0]))[1].device
@@ -210,7 +325,7 @@ def run_round(family, cfg, specs, omc: OMCConfig, sim: SimConfig, server_params,
     metrics = dict(loss=float(torch.tensor(losses, dtype=torch.float32).mean()),
                    cohort=len(models), dropped=int(plan.cohort_size - len(models)))
     if wire_table is not None:
-        metrics["down_bytes"] = (accounting.download_bytes_train(wire_table, omc)
+        metrics["down_bytes"] = (accounting.download_bytes_train(wire_table, omc, strategy)
                                  * plan.cohort_size)
         metrics["up_bytes"] = int(up_bytes)
     return new_storage, metrics
@@ -242,17 +357,22 @@ def run_training(family, cfg, omc: OMCConfig, sim: SimConfig, plan: cohort_lib.C
 
     Runs where ``init_params`` lie, else on ``device`` (default the card)
     from a random init seeded by ``init_key``; the cohort stream is
-    ``fold_in(init_key, 0xC047)``, as in the reference."""
-    check_unported(strategy, ste, ef, obs)
+    ``fold_in(init_key, 0xC047)``, as in the reference.  Under an EF
+    strategy pass ``ef=feedback.init_ef_state(...)`` to see the final
+    residuals (updated in place), or leave it None to have one allocated."""
+    check_unported(obs)
     specs = family.param_specs(cfg)
     params, storage = init_storage(family, cfg, omc, specs, init_key, init_params, device)
-    client_update = make_client_update(family, cfg, specs, omc, sim)
+    client_update = make_client_update(family, cfg, specs, omc, sim, strategy, ste)
+    if ef is None and ef_lib.takes_residual(omc, strategy):
+        ef = ef_lib.init_ef_state(params, specs, omc, plan.num_clients)
     wire_table = accounting.build_wire_table(params, specs, omc) if wire else None
     key = prng.fold_in(init_key, 0xC047)
     history = []
     for r in range(num_rounds):
         storage, metrics = run_round(family, cfg, specs, omc, sim, storage, data_fn, plan, r,
-                                     key, client_update=client_update, wire_table=wire_table)
+                                     key, client_update=client_update, wire_table=wire_table,
+                                     strategy=strategy, ste=ste, ef=ef)
         if eval_fn is not None and (r + 1) % eval_every == 0:
             metrics["eval"] = float(eval_fn(decompress_tree(storage), r))
         history.append(dict(round=r, **metrics))

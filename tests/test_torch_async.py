@@ -517,22 +517,56 @@ def test_in_flight_accounting(init):
 
 
 @pytest.mark.parametrize("kw,err,match", [
-    (dict(strategy=object()), NotImplementedError, "ROADMAP A7"),
-    (dict(ste=True), NotImplementedError, "ROADMAP A7"),
+    (dict(strategy="topk", fused_agg=True), ValueError, "no zoo strategy"),
     (dict(obs=object()), NotImplementedError, "ROADMAP A9"),
     (dict(population=object()), NotImplementedError, "ROADMAP A9"),
     (dict(fused_agg=True, omc="S1E8M23"), ValueError, "OMC enabled"),
-], ids=["strategy", "ste", "obs", "population", "fused_without_omc"])
+], ids=["fused_with_strategy", "obs", "population", "fused_without_omc"])
 def test_unported_and_invalid_arguments_raise(kw, err, match):
+    from repro_torch.compress import get_strategy
+
     omc = OMCConfig.parse(kw.pop("omc", FMT), quantize_fraction=1.0)
+    if "strategy" in kw:
+        kw["strategy"] = get_strategy(kw["strategy"])
     with pytest.raises(err, match=match):
         async_engine.AsyncRunner(cf, CFG, omc, sim(), async_engine.AsyncConfig(2),
                                  traces.FixedTrace(), num_clients=4, data_fn=data,
                                  init_key=prng.PRNGKey(0), device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        accounting.AsyncWireStats(accounting.WireTable((), (), (), 0), strategy=object())
     with pytest.raises(NotImplementedError, match="ROADMAP A9"):
         async_engine.make_flush_fn({}, OMCConfig.parse(FMT), sim(), collect_metrics=True)
+
+
+@pytest.mark.parametrize("kw", [dict(strategy="topk"), dict(ste=True)], ids=["strategy", "ste"])
+def test_strategy_and_ste_reach_the_lanes(init, kw):
+    """Under top-k with error feedback each trained lane writes its client's
+    residual row and the ledger prices uploads by the strategy's plan;
+    ``ste`` without a strategy gives the plain bits, as in the reference."""
+    from repro_torch.compress import feedback, get_strategy
+
+    def runner(**extra):
+        r = async_engine.AsyncRunner(
+            cf, CFG, OMCConfig.parse(FMT), sim(), async_engine.AsyncConfig(buffer_goal=4),
+            traces.FixedTrace(latency=1.0), num_clients=4, data_fn=data,
+            init_params=torch_params(init), **extra)
+        r.run_until(flushes=1)
+        return r
+
+    plain = runner()
+    if "ste" in kw:
+        assert trees_bit_equal(runner(ste=True).storage, plain.storage)
+        return
+    topk = get_strategy(kw["strategy"], density=0.05)  # 0.4 B a parameter, S1E3M7 1.375
+    r = runner(strategy=topk)
+    assert r.stats.strategy is topk and feedback.total_norm(r.ef) > 0
+    assert all(v.shape[0] == 4 for v in r.ef.values())
+    # every client trained once: each holds a residual (a variable its PPQ bit
+    # left f32 drains to 0)
+    assert all(any(bool(v[c].any()) for v in r.ef.values()) for c in range(4))
+    table, omc = r.stats.table, OMCConfig.parse(FMT)
+    assert r.stats.up_bytes == sum(
+        accounting.client_upload_bytes_strategy(table, omc, topk, 0, c) for c in range(4))
+    assert r.stats.up_bytes < plain.stats.up_bytes
+    assert r.stats.down_bytes == plain.stats.down_bytes  # the at-rest state
 
 
 def test_wire_stats_snapshot_matches_reference(port_degenerate):

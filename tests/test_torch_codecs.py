@@ -8,6 +8,8 @@ in bytes.
 """
 
 import functools
+import struct
+import zlib
 
 import jax
 import jax.numpy as jnp
@@ -123,9 +125,14 @@ def test_malformed_and_unported_payloads_raise():
     with pytest.raises(codecs.CodecError, match="truncated"):
         codecs.decode_payload(payload[:10], device="cpu")
     tagged = jcodecs.encode_payload(jtree, strategy="omc")  # strategy zoo frame
-    with pytest.raises(codecs.CodecError, match="not yet ported"):
-        codecs.decode_payload(tagged, device="cpu")
-    with pytest.raises(codecs.CodecError, match="not yet ported"):
+    tree, info = codecs.decode_payload(tagged, device="cpu")  # decodes since the zoo came
+    assert info.strategy == "omc" and codecs.tree_digest(tree) == jcodecs.tree_digest(jtree)
+    unknown = tagged.replace(b'"strategy":"omc"', b'"strategy":"zzz"')
+    # the crc (header bytes 24-28) covers the manifest and body after the header
+    unknown = unknown[:24] + struct.pack("<I", zlib.crc32(unknown[32:])) + unknown[28:]
+    with pytest.raises(codecs.CodecError, match="unknown compression strategy tag"):
+        codecs.decode_payload(unknown, device="cpu")
+    with pytest.raises(codecs.CodecError, match="no registered leaf codec"):
         codecs.encode_payload({"w": object()})
 
 

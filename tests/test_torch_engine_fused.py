@@ -91,8 +91,38 @@ def test_fused_gating_matches_reference():
                                        device="cpu")
 
 
-@pytest.mark.parametrize("kw", [dict(strategy=object()), dict(ste=True), dict(ef={}),
-                                dict(obs=object())], ids=["strategy", "ste", "ef", "obs"])
+def _trained(strategy_kw, init):
+    def run(fn, *spec, **kw):
+        return fn(cf, CFG, OMCConfig.parse("S1E3M7"), sim(), *spec, data, prng.PRNGKey(0),
+                  num_rounds=1, eval_every=100, init_params=torch_params(init), **kw)
+
+    return (run(engine.run_training_vectorized, engine.CohortSpec(CohortPlan(16, 8)),
+                **strategy_kw),
+            run(simulate.run_training, CohortPlan(16, 8), **strategy_kw))
+
+
+@pytest.fixture(scope="module")
+def plain(init):  # noqa: F811
+    return _trained({}, init)
+
+
+@pytest.mark.parametrize("kw", [dict(strategy="omc"), dict(ste=True),
+                                dict(strategy="omc", ef={})], ids=["strategy", "ste", "ef"])
+def test_strategy_arguments_keep_the_plain_bits(init, plain, kw):  # noqa: F811
+    """As in the reference: the OMC strategy is the hardcoded path, ``ste``
+    acts only through a strategy's qdq, and a dense strategy takes no
+    residual, so an ``ef`` handed to it is ignored (left empty)."""
+    from repro_torch.compress import get_strategy
+    from repro_torch.core.store import trees_bit_equal
+
+    got = _trained(dict(kw, **({"strategy": get_strategy("omc")} if "strategy" in kw else {})),
+                   init)
+    for (st0, h0), (st1, h1) in zip(plain, got):
+        assert h0 == h1 and trees_bit_equal(st0, st1)
+    assert kw.get("ef", {}) == {}
+
+
+@pytest.mark.parametrize("kw", [dict(obs=object())], ids=["obs"])
 def test_later_slices_raise_naming_the_roadmap(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         engine.run_training_vectorized(cf, CFG, OMCConfig.parse("S1E3M7"), simulate.SimConfig(),

@@ -1,5 +1,6 @@
-"""The scripts built on the non-IID path, ``examples_torch/`` and
-``benchmarks_torch/cohort_scale.py``, on the CPU (the engine round on
+"""The port's examples (``examples_torch/``, the non-IID scenario drivers
+and the strategy walkthroughs) and ``benchmarks_torch/cohort_scale.py``, on
+the CPU (the engine round on
 Dirichlet data is held against the reference's in tests/test_torch_engine.py).
 
   * Each example's ``--smoke --device cpu`` runs and exits 0; the scenario
@@ -50,7 +51,8 @@ ONE_ROUND = dict(cohort_scenarios=["--rounds", "1"], domain_adaptation=["--round
 
 
 @pytest.mark.parametrize("script", ["quickstart", "cohort_scenarios", "domain_adaptation",
-                                    "async_scenarios"])
+                                    "async_scenarios", "compress_strategies",
+                                    "train_under_strategy"])
 def test_example_smoke_runs_on_the_cpu(script):
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
@@ -60,7 +62,9 @@ def test_example_smoke_runs_on_the_cpu(script):
     assert rc == 0, text
     want = dict(quickstart="round 1: loss=", cohort_scenarios="[noniid/dirichlet(0.1)] loss",
                 domain_adaptation="target-domain loss after 6-bit adaptation",
-                async_scenarios="[async_vs_sync] updates/virtual-s")[script]
+                async_scenarios="[async_vs_sync] updates/virtual-s",
+                compress_strategies="pipe-s1e3m7-0.1    tag=pipeline v1",
+                train_under_strategy="residual norm after training")[script]
     assert want in text, text
     assert "nan" not in text.lower()
 

@@ -4,9 +4,9 @@ port's against the reference's.
 Each package's public names (its ``__all__``; the reference's ``api`` has
 none, so its public non-module names) are compared.  The port must define
 every name it exports, export none the reference lacks, and lack exactly
-the reference's names of later slices: the six that come with the
-compression strategies in ``core`` (ROADMAP A7) and the six of ``Obs`` and
-its tracer in ``obs`` (ROADMAP A9).
+the reference's names of later slices: the six of ``Obs`` and its tracer in
+``obs`` (ROADMAP A9).  ``core`` has all of the reference's since the
+compression strategies came (ROADMAP A7).
 """
 
 import importlib
@@ -14,7 +14,6 @@ import types
 
 import pytest
 
-A7 = {"FP32", "qdq", "qdq_ste", "qdq_pvt", "coverage", "selection_mask_tree"}
 A9 = {"Obs", "MetricsSink", "Tracer", "Span", "Bundle", "maybe_span"}
 
 
@@ -26,7 +25,7 @@ def _public(mod):
             if not n.startswith("_") and not isinstance(v, types.ModuleType)}
 
 
-@pytest.mark.parametrize("pkg, missing", [("core", A7), ("api", set()), ("data", set()),
+@pytest.mark.parametrize("pkg, missing", [("core", set()), ("api", set()), ("data", set()),
                                           ("obs", A9)])
 def test_package_names_match_the_reference(pkg, missing):
     ref = importlib.import_module(f"repro.{pkg}")
@@ -44,5 +43,5 @@ def test_package_name_counts():
     import repro_torch.api
     import repro_torch.core
 
-    assert len(repro.core.__all__) == 35 and len(repro_torch.core.__all__) == 29
+    assert len(repro.core.__all__) == 35 and len(repro_torch.core.__all__) == 35
     assert len(repro_torch.api.__all__) == 15

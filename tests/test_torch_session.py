@@ -312,9 +312,9 @@ def test_async_session_guards_match_reference(jinit):
 
 
 def test_unported_arguments_name_the_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
         FLSession(tr, CFG, OMC, strategy="omc", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
         FLClient(0, tr, CFG, OMC, lambda p, c, r: p, strategy="topk", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP A9"):
         FLSession(tr, CFG, OMC, obs=object(), device="cpu")

@@ -120,9 +120,7 @@ def test_peek_and_header_digest_on_reference_payloads():
     full = jcodecs.encode_payload(jnew, round_index=7)
     delta = jcodecs.encode_payload(jnew, base=jbase, round_index=8)
     for payload in (full, delta):
-        assert codecs.peek_payload(payload).__dict__ == {
-            k: v for k, v in jcodecs.peek_payload(payload).__dict__.items()
-            if k not in ("strategy", "strategy_version")}
+        assert codecs.peek_payload(payload).__dict__ == jcodecs.peek_payload(payload).__dict__
         assert codecs.header_base_digest(payload) == jcodecs.header_base_digest(payload)
     base = interop.storage_from_numpy(jbase, device="cpu")
     assert codecs.header_base_digest(delta) == codecs.tree_digest(base) != 0
@@ -169,10 +167,10 @@ def _encode_dummy(leaf, base):
     return dict(kind="dummy", shape=list(leaf.shape), mode="full"), [leaf.values.numpy().tobytes()]
 
 
-def _decode_dummy(meta, body, off, base):
+def _decode_dummy(meta, body, off, base, device):
     n = int(np.prod(meta["shape"]))
     vals = np.frombuffer(body, np.int8, n, off).reshape(meta["shape"]).copy()
-    return _Dummy(torch.from_numpy(vals)), off + n
+    return _Dummy(torch.from_numpy(vals).to(device)), off + n
 
 
 @pytest.fixture
@@ -215,8 +213,15 @@ def test_decode_consults_registered_kinds(dummy_kind):
     assert rep["per_strategy"]["dummy"]["payload_bytes"] == 6 == info.body_bytes - 16
     assert rep["wire_bytes"] == info.body_bytes and rep["num_compressed"] == 6
     assert codecs.tree_digest(tree) != codecs.tree_digest({"w": w})
-    with pytest.raises(codecs.CodecError, match="ROADMAP A7"):
-        codecs.encode_payload(tree)  # the reference would tag the frame
+    # a strategy-tagged frame encodes and decodes; untagged, the frame is
+    # tagged by its leaf kind, and "dummy" names no strategy (KeyError, as
+    # in the reference)
+    tagged, = [codecs.encode_payload(tree, strategy="topk")]
+    back, tinfo = codecs.decode_payload(tagged, device="cpu")
+    assert (tinfo.strategy, tinfo.strategy_version) == ("topk", 1)
+    assert torch.equal(back["d"].values, vals) and torch.equal(back["w"], w)
+    with pytest.raises(KeyError, match="dummy"):
+        codecs.encode_payload(tree)
     codecs._LEAF_CODECS.pop("dummy")
     with pytest.raises(codecs.CodecError, match="unknown leaf kind"):
         codecs.decode_payload(payload, device="cpu")
