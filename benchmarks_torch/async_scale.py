@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Async vs sync throughput under straggler traces, on the port
-(counterpart of ``benchmarks/async_scale.py``, without its ``obs`` tracing).
+(counterpart of ``benchmarks/async_scale.py``).
 
 Runs the event-driven buffered runtime
 (``repro_torch.federated.async_engine``) against the barrier-synchronous
@@ -27,7 +27,10 @@ layers, d 512) on the card at the reference's cohort 64 and buffer 16: the
 engine's round holds the cohort's 64 trained f32 models once, in their
 stack, beside the trained models the async runner keeps cached, and an
 H100 80GB peaks at about 53 GB.  The row records the process's peak device
-memory.  Writes ``experiments/bench_torch/async_scale.json``.
+memory.  Writes ``experiments/bench_torch/async_scale.json``; ``--trace``
+also records the run's telemetry (``repro_torch.obs``: a wall span per sync
+round and per flush, a virtual span per async client round, a metric bundle
+per flush) into ``experiments/obs/async_scale.{obs.jsonl,perfetto.json}``.
 """
 
 from __future__ import annotations
@@ -55,6 +58,7 @@ from repro_torch.federated import accounting, async_engine, engine, simulate, tr
 from repro_torch.federated.cohort import CohortPlan  # noqa: E402
 from repro_torch.federated.state import compress_params  # noqa: E402
 from repro_torch.models import conformer as cf  # noqa: E402
+from repro_torch.obs import Obs, null_span  # noqa: E402
 
 SMOKE_CFG = cf.ConformerConfig(n_layers=2, d_model=32, n_heads=4, d_ff=64, n_classes=16, d_in=8)
 
@@ -66,9 +70,11 @@ def _median(xs):
 
 
 def bench(cfg, cohort: int, buffer_goal: int, rounds: int, batch: int, seq: int, alpha: float,
-          fmt: str, seed: int, device) -> dict:
+          fmt: str, seed: int, device, obs=None) -> dict:
     """One comparison row: the whole population takes part in both paths;
-    sync invites everyone each round, async buffers K uploads."""
+    sync invites everyone each round, async buffers K uploads.  ``obs``
+    traces the run (a ``sync_round`` wall span per timed sync round, the
+    runner's spans and flush records); the caller flushes it."""
     omc = OMCConfig.parse(fmt)
     sim = simulate.SimConfig(local_steps=1, client_lr=0.1)
     task = make_frame_task(d_in=cfg.d_in, n_classes=cfg.n_classes, seq_len=seq,
@@ -87,7 +93,7 @@ def bench(cfg, cohort: int, buffer_goal: int, rounds: int, batch: int, seq: int,
     round_fn = engine.make_round_fn(cf, cfg, specs, omc, sim, spec, data_fn)
     runner = async_engine.AsyncRunner(
         cf, cfg, omc, sim, async_engine.AsyncConfig(buffer_goal=buffer_goal, decay=0.5), trace,
-        num_clients=cohort, data_fn=data_fn, init_params=params)
+        num_clients=cohort, data_fn=data_fn, init_params=params, obs=obs)
     del params
     # warm-up of both paths, untimed; the warm round trains from the initial
     # model, so its loss is the baseline of both quality-per-byte deltas
@@ -106,9 +112,10 @@ def bench(cfg, cohort: int, buffer_goal: int, rounds: int, batch: int, seq: int,
     while r <= rounds or runner.completed < budget:
         if r <= rounds:
             t0 = time.perf_counter()
-            sync_storage, sync_metrics = engine.run_round_vectorized(
-                cf, cfg, specs, omc, sim, sync_storage, data_fn, spec, r, rkey,
-                round_fn=round_fn, wire_table=table)
+            with null_span(obs, "sync_round", round=r):
+                sync_storage, sync_metrics = engine.run_round_vectorized(
+                    cf, cfg, specs, omc, sim, sync_storage, data_fn, spec, r, rkey,
+                    round_fn=round_fn, wire_table=table)
             sync(device)
             sync_t.append(time.perf_counter() - t0)
         if runner.completed < budget:
@@ -164,11 +171,12 @@ def bench(cfg, cohort: int, buffer_goal: int, rounds: int, batch: int, seq: int,
 
 
 def run(cohort=64, buffer_goal=16, rounds=5, batch=1, seq=8, alpha=1.5, fmt="S1E3M7", seed=0,
-        smoke=False):
+        smoke=False, trace=False):
     rounds = max(1, min(rounds, int(os.environ.get("BENCH_ROUNDS", rounds))))
     device = bench_device(smoke)
     cfg = SMOKE_CFG if smoke else conformer_s.config()
-    row = bench(cfg, cohort, buffer_goal, rounds, batch, seq, alpha, fmt, seed, device)
+    obs = Obs(run_name="async_scale") if trace else None
+    row = bench(cfg, cohort, buffer_goal, rounds, batch, seq, alpha, fmt, seed, device, obs=obs)
     print_table("Async vs sync under Pareto stragglers (virtual + wall clock)", [row],
                 ["cohort", "buffer_goal", "sync_updates_per_vs", "async_updates_per_vs",
                  "vtime_speedup", "sync_wall_s_per_round", "async_wall_s_per_flush",
@@ -180,6 +188,9 @@ def run(cohort=64, buffer_goal=16, rounds=5, batch=1, seq=8, alpha=1.5, fmt="S1E
     path = save_result("async_scale", dict(smoke=smoke, fmt=fmt, rounds=rounds, batch=batch,
                                            seq_len=seq, rows=[row]))
     print(f"wrote {path}")
+    if obs is not None:
+        paths = obs.flush()
+        print(f"wrote {paths['jsonl']} and {paths['perfetto']}")
     # the reference's gate: non-barrier aggregation beats the straggler
     # barrier by >= 2x in completed updates per virtual second
     assert row["vtime_speedup"] >= 2.0, row
@@ -199,6 +210,8 @@ def main(argv=None) -> int:
                     help="Pareto tail index (smaller = heavier stragglers)")
     ap.add_argument("--fmt", default="S1E3M7")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--trace", action="store_true",
+                    help="record obs telemetry (JSONL + Perfetto under experiments/obs/)")
     args = ap.parse_args(argv)
     if args.smoke:
         cohort, buffer_goal, rounds = 8, 4, args.rounds or 3
@@ -206,7 +219,7 @@ def main(argv=None) -> int:
         cohort, buffer_goal, rounds = args.cohort, args.buffer, args.rounds or 5
     t0 = time.perf_counter()
     run(cohort=cohort, buffer_goal=buffer_goal, rounds=rounds, batch=args.batch, seq=args.seq,
-        alpha=args.alpha, fmt=args.fmt, seed=args.seed, smoke=args.smoke)
+        alpha=args.alpha, fmt=args.fmt, seed=args.seed, smoke=args.smoke, trace=args.trace)
     print(f"\n{device_name(bench_device(args.smoke))}: {time.perf_counter() - t0:.1f} s")
     return 0
 

@@ -21,7 +21,9 @@ the reference's gate.
 Without it the model is conformer_s' published config (17 layers, d 512) on
 the card at the reference's cohorts 4, 16 and 64: the loop holds a cohort's
 trained f32 models and their stack, about 53 GB at cohort 64.
-``--obs-overhead`` (telemetry cost) waits for ``obs`` (ROADMAP A9).  Writes
+``--obs-overhead`` also times engine rounds at the largest cohort with a
+live ``repro_torch.obs.Obs`` (metric bundles and spans) against
+``obs=None``, interleaved.  Writes
 ``experiments/bench_torch/cohort_scale.json`` (``cohort_scale_smoke.json``
 with ``--smoke``).
 """
@@ -51,6 +53,7 @@ from repro_torch.federated import accounting, engine, simulate  # noqa: E402
 from repro_torch.federated.cohort import CohortPlan  # noqa: E402
 from repro_torch.federated.state import compress_params  # noqa: E402
 from repro_torch.models import conformer as cf  # noqa: E402
+from repro_torch.obs import Obs  # noqa: E402
 
 SMOKE_CFG = cf.ConformerConfig(n_layers=2, d_model=32, n_heads=4, d_ff=64, n_classes=16, d_in=8)
 
@@ -161,11 +164,48 @@ def bench_tiers(cfg, cohort: int, rounds: int, batch: int, seq: int, tier_names,
                 down_bytes=m["down_bytes"], up_bytes=m["up_bytes"])
 
 
+def bench_obs_overhead(cfg, cohort: int, rounds: int, batch: int, seq: int, fmt: str,
+                       seed: int, device) -> dict:
+    """Wall cost of telemetry on the engine: identical rounds with
+    ``obs=None`` and with a live :class:`repro_torch.obs.Obs` (metric bundles
+    and spans), interleaved so host noise hits both alike, each timed with
+    the card synchronized.  DESIGN.md §15 sets <= 5% median overhead at
+    cohort 64 as the target: the round hands back the mean it already
+    computed, and the bundle is two decodes of the storage and a few
+    reductions.  The handle is never flushed: recording, not file I/O."""
+    sim = simulate.SimConfig(local_steps=1, client_lr=0.1)
+    plan, data_fn = _setup(cfg, cohort, batch, seq, device)
+    omc, specs, storage0, table, rkey = _init(cfg, fmt, seed, device)
+    spec = engine.CohortSpec(plan)
+    obs = Obs(run_name="cohort_overhead")
+    fn_off = engine.make_round_fn(cf, cfg, specs, omc, sim, spec, data_fn)
+    fn_on = engine.make_round_fn(cf, cfg, specs, omc, sim, spec, data_fn, collect_metrics=True)
+    # warm both (round 0, untimed)
+    engine.run_round_vectorized(cf, cfg, specs, omc, sim, storage0, data_fn, spec, 0, rkey,
+                                round_fn=fn_off)
+    engine.run_round_vectorized(cf, cfg, specs, omc, sim, storage0, data_fn, spec, 0, rkey,
+                                round_fn=fn_on, obs=obs)
+    off_t, on_t = [], []
+    off_storage = on_storage = storage0
+    for r in range(1, rounds + 1):
+        (off_storage, _), dt = _timed(lambda: engine.run_round_vectorized(
+            cf, cfg, specs, omc, sim, off_storage, data_fn, spec, r, rkey, round_fn=fn_off,
+            wire_table=table), device)
+        off_t.append(dt)
+        (on_storage, _), dt = _timed(lambda: engine.run_round_vectorized(
+            cf, cfg, specs, omc, sim, on_storage, data_fn, spec, r, rkey, round_fn=fn_on,
+            wire_table=table, obs=obs), device)
+        on_t.append(dt)
+    off_s, on_s = _median(off_t), _median(on_t)
+    return dict(cohort=cohort, obs_off_s_per_round=round(off_s, 4),
+                obs_on_s_per_round=round(on_s, 4),
+                overhead_pct=round(100.0 * (on_s / off_s - 1.0), 2),
+                obs_off_s=[round(t, 4) for t in off_t], obs_on_s=[round(t, 4) for t in on_t],
+                records=len(obs.sink.records()), device=device_name(device))
+
+
 def run(cohorts=(4, 16, 64), rounds=5, batch=1, seq=8, fmt="S1E3M7", seed=0, tiers=None,
         smoke=False, obs_overhead=False):
-    if obs_overhead:
-        raise NotImplementedError("--obs-overhead times the engine with telemetry on, and "
-                                  "obs is not ported yet (ROADMAP A9)")
     # the reference's suite budget knob: BENCH_ROUNDS caps the timed rounds
     rounds = max(1, min(rounds, int(os.environ.get("BENCH_ROUNDS", rounds))))
     device = bench_device(smoke)
@@ -187,6 +227,12 @@ def run(cohorts=(4, 16, 64), rounds=5, batch=1, seq=8, fmt="S1E3M7", seed=0, tie
         print_table("Mixed-bitwidth cohort (engine only)", [hrow],
                     ["cohort", "tiers", "vec_s_per_round", "up_bytes"])
         payload["hetero"] = hrow
+    if obs_overhead:
+        orow = bench_obs_overhead(cfg, max(cohorts), rounds, batch, seq, fmt, seed, device)
+        print_table("Telemetry overhead (engine, obs on vs off)", [orow],
+                    ["cohort", "obs_off_s_per_round", "obs_on_s_per_round", "overhead_pct",
+                     "records"])
+        payload["obs_overhead"] = orow
     path = save_result("cohort_scale_smoke" if smoke else "cohort_scale", payload)
     print(f"wrote {path}")
     assert all(r["wire_match"] and r["codec_match"] for r in rows), rows
@@ -206,7 +252,8 @@ def main(argv=None) -> int:
     ap.add_argument("--tiers", default=None,
                     help="comma-separated profile names for a hetero row, e.g. s1e3m7,s1e4m3,f32")
     ap.add_argument("--obs-overhead", action="store_true",
-                    help="also time engine rounds with telemetry on (needs ROADMAP A9)")
+                    help="also time engine rounds with telemetry on at the largest cohort "
+                         "(DESIGN.md §15's <= 5%% target)")
     args = ap.parse_args(argv)
     if args.smoke:
         cohorts, rounds = (4, 8), args.rounds or 2

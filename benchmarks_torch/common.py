@@ -73,13 +73,15 @@ def bench_device(smoke: bool) -> torch.device:
     return torch.device("cuda")
 
 
-def conformer_setup(iid: bool = True, domain: int = 0, seed: int = 0, smoke: bool = False):
+def conformer_setup(iid: bool = True, domain: int = 0, seed: int = 0, smoke: bool = False,
+                    device=None):
     """``(family, cfg, task, data_fn, eval_batches)`` as the reference's, at
-    full width on the card, or the smoke config on the CPU with ``smoke``."""
+    full width on the card, or the smoke config on the CPU with ``smoke``;
+    ``device`` puts either on another device."""
     cfg = conformer_s.smoke_config() if smoke else conformer_s.config()
     task = make_frame_task(d_in=cfg.d_in, n_classes=cfg.n_classes, seq_len=32,
                            num_clients=BENCH_CLIENTS, iid=iid, seed=seed, domain=domain,
-                           device=str(bench_device(smoke)))
+                           device=str(device or bench_device(smoke)))
     data_fn = lambda c, r, s: task.batch(c, r, s, BENCH_BATCH)  # noqa: E731
     eval_batches = [task.batch(100 + i, 10_000, 0, BENCH_BATCH) for i in range(4)]
     return conformer, cfg, task, data_fn, eval_batches

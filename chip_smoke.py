@@ -12,7 +12,10 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
      sm_90a), with its time.
   2. Each of the seven kernels against its plain PyTorch version, on the card:
      at the serve path's shapes (qwen2.5-3b's MLP slice [2048, 11008] and
-     embedding [151936, 2048] in S1E3M7), at the training path's shapes
+     embedding [151936, 2048] in S1E3M7, timed, and ``quantize_stats`` and
+     ``dequantize`` on recurrentgemma-2b's tied embedding [256000, 2560],
+     the plain versions on blocks of 32,768 rows, ``dequantize`` timed), at
+     the training path's shapes
      (``quantize`` on a transport stack [8, 17, 512, 2048] and a storage leaf
      [17, 512, 2048]; ``fused_aggregate`` on conformer_s leaves [17, 512, 2048]
      and [17, 512, 512] stacked, and [512, 1024] flat, at cohort 8) and at
@@ -72,21 +75,27 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
      Launch counters are zeroed just before and read just after: 252
      ``dequant_matmul`` and 2 ``dequantize`` launches per forward pass, every
      serve kernel launched, no plain version run.
-  4. Card against CPU at full width: the served storage tree cut to 2 layers,
-     prefill and 1 decode step on the card (kernels), twice (the same bits
-     both times), and on the CPU (plain versions); the largest logit
-     difference must be <= 1e-3 (cut from 2 decode steps to make room for
-     phase 17, as phase 6 was).  The sha256 of each step's logits, on the
+  4. Card against CPU at full width: the served storage tree cut to 2 layers
+     and to the first 32,768 rows of the tied embedding's codes (its
+     per-variable (s, b) unchanged, prompts drawn below 32,768), prefill and
+     1 decode step on the card (kernels), twice (the same bits both times),
+     and on the CPU (plain versions); the largest logit difference must be
+     <= 1e-3.  The CPU side decodes the tied head in plain PyTorch once a
+     forward pass, which at 151,936 rows was most of the phase: phase 3
+     still serves the full vocabulary on the card, and phase 2 holds B1, B2
+     and B4 on the full [151936, 2048] head.  The sha256 of each step's logits, on the
      card and on the CPU, is printed, so that runs can be compared.
   5. Serve recurrentgemma-2b (griffin) at full width the same way (26 layers,
      d 2560, vocab 256,000; batch 4, prompt 32, 16 new tokens, with the wire
      roundtrip): 200 ``dequant_matmul`` and 20 ``dequantize`` launches per
      forward pass, no plain version run, payload ratio <= 0.35.
   6. Card against CPU for griffin: its storage cut to 5 layers (the first
-     super block and the two extra recurrent blocks) at full width, prefill
-     and 1 decode step (cut from 2 to keep the script within its time
-     limit: the CPU side decodes the 256,000 x 2560 tied head once a
-     forward pass), as in phase 4.
+     super block and the two extra recurrent blocks) at full width and to
+     phase 4's 32,768-row vocabulary (the 256,000-row head decoded on the
+     CPU once a forward pass was the script's largest cost; phase 5 serves
+     the full vocabulary on the card, and phase 2 holds B1 and B2 on the
+     full [256000, 2560] head), prefill and 1 decode step, as in
+     phase 4.
   7. Federated training at full width through the engine
      (``engine.run_training_vectorized``, ``engine.run_round_vectorized``):
      conformer_s (17 layers, d 512), random weights from a seed on the card,
@@ -139,10 +148,11 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
  12. Card against CPU for the round: ``make_round_fn`` with ``fedavg(1.0)``
      on conformer_s cut to 2 layers at full width (S1E4M14, a frame batch
      8 x 48; 2 rounds) and on qwen2.5-3b cut to 2 layers at full width (d
-     2048, vocab 151,936, tied head; S1E3M7, a 4 x 32 batch of the non-IID
-     LM task, ``make_lm_task(vocab=4096, seq_len=32, iid=False)``, drawn on
-     the card; 1 round, cut from 2 to keep the script under 900 s: its CPU
-     side is the script's largest cost), from one state each, on the card
+     2048, tied head) and to the LM batch's vocabulary of 4096 (S1E3M7, a
+     4 x 32 batch of the non-IID LM task, ``make_lm_task(vocab=4096,
+     seq_len=32, iid=False)``, drawn on the card; 1 round: the CPU side's
+     plain versions on the full 151,936-row embedding were half the phase,
+     and phase 3 still serves the full vocabulary), from one state each, on the card
      (kernels) and on the CPU (plain versions), both on the card's batch:
      losses within rtol 1e-4, trees within phase 7's gate; the card's
      checkpoint restores on the CPU to the same bits.  The same LM batch is
@@ -259,18 +269,40 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
      side's threshold; the async runtime under top-k + EF on the
      degenerate trace (2 clients, buffer 2, 2 flushes), a mid-buffer
      checkpoint resumed to the same bits, card against CPU within the gates.
+ 18. Telemetry (``repro_torch.obs``) and the sessions' strategy uploads at
+     full width, under deterministic algorithms.  The engine at phase 7's
+     configuration, unfused and fused: 2 rounds with ``obs=None``, then 2
+     from the same state with a live ``Obs`` writing into ``build/obs/``:
+     storage the same bits, history and ledger the same bytes, two
+     ``round`` records with a finite ``update_norm``, ``qerr_norm`` and the
+     13 ``qerr/*`` only unfused; B1 and B5 launches unchanged and B2 up by
+     exactly the bundle's two decodes (old and new storage) of each
+     compressed leaf a round.  The summed ``round`` wall spans are printed
+     beside the host clock around ``synchronize``, and the peak beside phase
+     7's.  One sync round of ``FLSession``/``FLClient`` at cohort 4 of 8
+     (phase 15's clients) under top-k 0.1 with S1E3M7 values and error
+     feedback: each upload's body the strategy plan's bytes, each part's
+     launches as predicted from the 13 leaves (B3 and B4 at each upload's
+     encode, B4 ``unpack`` at each decode), every residual on the card.  The
+     async runtime (4 clients, buffer 2, the straggler knobs), 2 flushes: a
+     ``client_round`` virtual span per check-in, a ``flush`` record with its
+     staleness list per flush.  Every handle is flushed to JSONL and
+     Perfetto files (their bytes printed) and ``python -m
+     repro_torch.obs.report`` renders the unfused engine's, exit 0.
 
 Each phase's wall seconds are printed on a line of their own.  It then
 prints one JSON line describing each kernel (``launches_by_path`` has the
-main paths of phases 3, 5, 7, 9, 11, 13, 15, 16 and 17) and, last, the line
+main paths of phases 3, 5, 7, 9, 11, 13, 15, 16, 17 and 18) and, last, the line
 ``{"ok": true, "device": {...}}``.  f32 matmuls run in full f32: TF32 is
 switched off for matmuls and cuDNN.  Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
+import io
 import importlib
 import importlib.util
 import json
@@ -320,6 +352,8 @@ from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import quantize as qk  # noqa: E402
 from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.models import conformer, griffin, transformer  # noqa: E402
+from repro_torch.obs import Obs  # noqa: E402
+from repro_torch.obs import report as obs_report  # noqa: E402
 from repro_torch.optim import fedavg  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
@@ -331,6 +365,7 @@ MLP_SLICE = (CFG.d_model, CFG.d_ff)  # one layer's w1 / w3
 EMBED = (CFG.vocab, CFG.d_model)
 STACKED_MLP = (CFG.n_layers, CFG.d_model, CFG.d_ff)  # a stacked w1 leaf
 GCFG = recurrentgemma_2b.config()
+GHEAD = (GCFG.vocab, GCFG.d_model)  # griffin's tied embedding, its head at every forward pass
 DECODE_W1 = (4, CFG.d_model, CFG.d_ff)  # (M, K, N) of a decode step's w1 product
 PREFILL = 128  # rows of A in a 4 x 32 prefill
 # (M, K, N) of the serve paths' products: decode w1, w2, wk, prefill w1 and
@@ -386,6 +421,12 @@ SESSION_PLAN = CohortPlan(num_clients=8, cohort_size=4)  # phase 15
 SESSION_ROUNDS, SESSION_BUFFER, SESSION_DECAY = 2, 4, 0.5
 SESSION_STEPS, SESSION_LR = 2, 0.05  # each client's local SGD
 NONIID_ROUNDS = 2  # phase 16's Dirichlet run
+CUT_VOCAB = 32_768  # phases 4 and 6: the tied heads' first rows, card against CPU
+LM_VOCAB = 4096  # phase 12's non-IID LM batch, and its qwen round's vocabulary
+OBS_DIR = ROOT / "build" / "obs"  # phase 18's JSONL and Perfetto files
+OBS_ROUNDS = 2  # phase 18: engine rounds a run, obs off and on
+OBS_SESSION_STRATEGY = dict(name="topk", density=0.1, value_fmt=FMT)  # phase 18's uploads
+OBS_ASYNC_CLIENTS, OBS_ASYNC_BUFFER = 4, 2  # phase 18's async run (8 and 4 took 4.9 s)
 
 
 def require(cond: bool, msg: str) -> None:
@@ -501,11 +542,30 @@ def _inputs(shape, fmt: FloatFormat, seed: int, specials: bool = True) -> torch.
     return x
 
 
-def check_quantize_stats(x, fmt, batch_axes, timer=None):
+def row_blocks(t: torch.Tensor, rows):
+    """Indices of blocks of ``rows`` leading rows covering ``t`` (the whole
+    of it without ``rows``): a head too large for the plain versions' int64
+    math in one piece is held against them block by block."""
+    if rows is None:
+        return [...]
+    return [slice(i, i + rows) for i in range(0, t.shape[0], rows)]
+
+
+def check_quantize_stats(x, fmt, batch_axes, timer=None, block_rows=None):
+    """With ``block_rows`` (``batch_axes`` 0), the kernel runs on the whole
+    tensor and the plain version on blocks of rows: codes block by block,
+    the sums against the blocks' sums added in float64."""
     codes, sums = qk.quantize_stats(x, fmt, batch_axes)
     torch.cuda.synchronize()
-    rcodes, rsums = ref.ref_quantize_stats(x, fmt, batch_axes)
-    require(bit_equal(codes, rcodes), f"quantize_stats codes differ {fmt.name} {tuple(x.shape)}")
+    require(block_rows is None or batch_axes == 0, "blocks need one (s, b) per variable")
+    rsums = 0
+    for k in row_blocks(x, block_rows):
+        rcodes, part = ref.ref_quantize_stats(x[k], fmt, batch_axes)
+        require(bit_equal(codes[k], rcodes),
+                f"quantize_stats codes differ {fmt.name} {tuple(x.shape)} rows {k}")
+        rsums = rsums + (part if block_rows is None else part.double())
+        del rcodes
+    rsums = rsums.to(sums.dtype)
     finite = torch.isfinite(rsums)
     require(torch.equal(finite, torch.isfinite(sums)), "quantize_stats: non-finite sums differ")
     err = (sums[finite] - rsums[finite]).abs().max().item() if finite.any() else 0.0
@@ -529,11 +589,14 @@ def nan_codes(codes: torch.Tensor, fmt: FloatFormat) -> torch.Tensor:
     return narrow(torch.full(codes.shape, nan, device=codes.device), fmt.container_dtype)
 
 
-def check_dequantize(codes, fmt, timer=None, batch_axes=0):
+def check_dequantize(codes, fmt, timer=None, batch_axes=0, block_rows=None):
     """With ``batch_axes``, one (s, b) pair per stacked entry, shaped
     ``[*stack, 1, ...]`` as a stacked ``CompressedVariable`` holds them.  The
     launch's variant must be the one ``kernel_variant`` states, and a second
-    launch, after one on all-NaN codes, must give the same bits."""
+    launch, after one on all-NaN codes, must give the same bits.  With
+    ``block_rows`` (``batch_axes`` 0) the plain version runs on blocks of
+    rows, and its time is the blocks' times added."""
+    require(block_rows is None or batch_axes == 0, "blocks need one (s, b) per variable")
     lead = tuple(codes.shape[:batch_axes])
     shape = lead + (1,) * (codes.ndim - batch_axes) if batch_axes else ()
     g = torch.Generator(device="cuda").manual_seed(codes.numel())
@@ -546,18 +609,26 @@ def check_dequantize(codes, fmt, timer=None, batch_axes=0):
     qk.dequantize(nan_codes(codes, fmt), fmt, s, b)
     again = qk.dequantize(codes, fmt, s, b)
     torch.cuda.synchronize()
-    want = ref.ref_dequantize(codes, fmt, s, b)
-    require(bit_equal(got, want), f"dequantize differs {fmt.name} {tuple(codes.shape)}")
+    blocks = row_blocks(codes, block_rows)
+    err = 0.0
+    for k in blocks:
+        want = ref.ref_dequantize(codes[k], fmt, s, b)
+        require(bit_equal(got[k], want), f"dequantize differs {fmt.name} {tuple(codes.shape)} "
+                f"rows {k}")
+        fin = torch.isfinite(want)
+        if fin.any():
+            err = max(err, (got[k][fin] - want[fin]).abs().max().item())
+        del want, fin
     require(bit_equal(got, again), f"dequantize {fmt.name} {tuple(codes.shape)}: two launches "
             f"differ")
-    fin = torch.isfinite(want)
+    del got, again
     out = dict(shape=list(codes.shape), fmt=fmt.name, variant=DQ_VARIANTS[plan["variant"]],
-               vec=plan["vec"], same_bits=True,
-               max_abs_err=(got[fin] - want[fin]).abs().max().item() if fin.any() else 0.0)
+               vec=plan["vec"], same_bits=True, max_abs_err=err)
     if timer:
         out.update(ms=timer(lambda: qk.dequantize(codes, fmt, s, b)),
                    device_ms=timer.device(lambda: qk.dequantize(codes, fmt, s, b)),
-                   plain_ms=timer(lambda: ref.ref_dequantize(codes, fmt, s, b)),
+                   plain_ms=sum(timer(lambda k=k: ref.ref_dequantize(codes[k], fmt, s, b))
+                                for k in blocks),
                    bound_ms=bound_ms(codes.numel() * (fmt.container_bytes_per_value + 4)),
                    blocks=plan["blocks"])
     return out
@@ -881,7 +952,7 @@ def phase_kernels() -> dict:
         results["pack"].append(p)
         results["unpack"].append(u)
     results["pack"] += check_pack_widths()
-    # the serve path's shapes, timed
+    # the serve paths' shapes, timed: qwen's w1 slice and tied head
     for shape in (MLP_SLICE, EMBED):
         x = _inputs(shape, FMT, seed=shape[0], specials=False)
         codes, r = check_quantize_stats(x, FMT, 0, timer)
@@ -892,6 +963,17 @@ def phase_kernels() -> dict:
         results["pack"].append(p)
         results["unpack"].append(u)
         del codes
+    # griffin's tied head, which phase 5 decodes whole at every forward pass
+    # (phases 4 and 6 compare card and CPU on vocabulary cuts): B1, and B2
+    # timed, the plain versions on blocks of rows (whole, their int64 math
+    # does not fit in the card's memory)
+    x = _inputs(GHEAD, FMT, seed=GHEAD[0], specials=False)
+    codes, r = check_quantize_stats(x, FMT, 0, block_rows=CUT_VOCAB)
+    del x
+    results["quantize_stats"].append(r)
+    results["dequantize"].append(check_dequantize(codes, FMT, timer, block_rows=CUT_VOCAB))
+    del codes
+    torch.cuda.empty_cache()
     # dequantize: every code of five formats, each in its variant; conformer_s'
     # stacked leaf with per-entry (s, b) in S1E3M7 (engine, async) and in
     # S1E4M14 (the training driver), timed
@@ -1089,28 +1171,46 @@ def digest(x: torch.Tensor) -> str:
     return hashlib.sha256(x.contiguous().numpy().tobytes()).hexdigest()[:12]
 
 
+def vocab_cut(embed, rows: int = CUT_VOCAB):
+    """The first ``rows`` rows of a compressed tied embedding's codes, its
+    per-variable (s, b) unchanged: the same model restricted to those
+    tokens, its head a ``rows``-entry slice of the full one."""
+    require(is_compressed(embed) and embed.s.numel() == 1, "the embedding's (s, b) per variable")
+    return type(embed)(embed.codes[:rows], embed.s, embed.b, embed.fmt)
+
+
 def phase_card_vs_cpu(sess: ServeSession) -> float:
     st = sess.storage
-    cut = dict(embed=st["embed"], final_norm=st["final_norm"],
+    cut = dict(embed=vocab_cut(st["embed"]), final_norm=st["final_norm"],
                blocks={k: v[:2] for k, v in st["blocks"].items()})
-    # one decode step, as phase 6: the CPU side decodes the 151,936 x 2048
-    # tied head in plain PyTorch once a forward pass, and phase 17 needs room
-    return card_vs_cpu("qwen2.5-3b, 2 layers", transformer,
-                       dataclasses.replace(CFG, n_layers=2), cut, decode_steps=1)
+    # one decode step on a vocabulary cut (the first 32,768 rows of the tied
+    # head; prompts drawn below it): the CPU side decodes the tied head in
+    # plain PyTorch once a forward pass, and at 151,936 rows that was the
+    # phase's cost.  The full vocabulary is still served on the card in
+    # phase 3, and phase 2 holds B2 (and B1, B4) against the plain versions
+    # on the full [151936, 2048] head
+    return card_vs_cpu(f"qwen2.5-3b, 2 layers, vocab {CUT_VOCAB:,}", transformer,
+                       dataclasses.replace(CFG, n_layers=2, vocab=CUT_VOCAB), cut,
+                       decode_steps=1)
 
 
 def phase_griffin_card_vs_cpu(sess: ServeSession) -> float:
     """The first super block (two recurrent blocks and one attention block)
     and the two extra recurrent blocks: 5 layers at full width."""
     st = sess.storage
-    cut = dict(embed=st["embed"], final_norm=st["final_norm"], extra_rec=st["extra_rec"],
+    cut = dict(embed=vocab_cut(st["embed"]), final_norm=st["final_norm"],
+               extra_rec=st["extra_rec"],
                super_blocks={part: {k: v[:1] for k, v in leaves.items()}
                              for part, leaves in st["super_blocks"].items()})
-    cfg5 = dataclasses.replace(GCFG, n_layers=5)
+    cfg5 = dataclasses.replace(GCFG, n_layers=5, vocab=CUT_VOCAB)
     require((cfg5.n_super, cfg5.n_extra_rec) == (1, GCFG.n_extra_rec), "griffin cut")
-    # one decode step: the CPU side decodes the 256,000 x 2560 tied head in
-    # plain PyTorch once a forward pass, and the script's time limit is fixed
-    return card_vs_cpu("recurrentgemma-2b, 5 layers", griffin, cfg5, cut, decode_steps=1)
+    # one decode step on phase 4's vocabulary cut: the CPU side decoded the
+    # 256,000 x 2560 tied head in plain PyTorch once a forward pass, the
+    # script's largest cost.  Phase 5 serves the full vocabulary on the
+    # card, and phase 2 holds B1 and B2 against the plain versions on the
+    # full [256000, 2560] head
+    return card_vs_cpu(f"recurrentgemma-2b, 5 layers, vocab {CUT_VOCAB:,}", griffin, cfg5, cut,
+                       decode_steps=1)
 
 
 # ---------------------------------------------------------------------------
@@ -1518,10 +1618,13 @@ def phase_round_card_vs_cpu() -> dict:
     task = make_frame_task(d_in=ccfg.d_in, n_classes=ccfg.n_classes, seq_len=48, num_clients=16)
     conf = round_card_vs_cpu("conformer_s", conformer, ccfg, "S1E4M14", task.batch(0, 0, 0, 8), 2)
     torch.cuda.empty_cache()
-    qcfg = dataclasses.replace(CFG, n_layers=2)
+    # 2 layers at full width (d 2048) and the LM batch's vocabulary of 4096:
+    # the CPU side's plain versions on the full 151,936 x 2048 tied
+    # embedding took half the phase (the qwen round 120.1 s at the full
+    # vocabulary against 57.3 s at 4096 on an H100 80GB HBM3 at 700 W); the
+    # full vocabulary serves in phase 3 and is held in phase 2
+    qcfg = dataclasses.replace(CFG, n_layers=2, vocab=LM_VOCAB)
     lm = lm_batch_card_vs_cpu()
-    # 1 round: the CPU side (the plain versions on the 311 M-value
-    # embedding) is the script's largest cost, cut to keep it under 900 s
     qwen = round_card_vs_cpu("qwen2.5-3b", transformer, qcfg, "S1E3M7", lm.pop("batch"), 1)
     torch.cuda.empty_cache()
     return dict(conformer_s=conf, qwen=qwen, lm_batch=lm)
@@ -1537,7 +1640,7 @@ def lm_batch_card_vs_cpu(client: int = 1) -> dict:
     tests/test_torch_partition.py carried through the log."""
     out = {}
     for dev in ("cuda", "cpu"):
-        task = make_lm_task(vocab=4096, seq_len=32, iid=False, device=dev)
+        task = make_lm_task(vocab=LM_VOCAB, seq_len=32, iid=False, device=dev)
         sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
         sync()
         t0 = time.perf_counter()
@@ -2803,6 +2906,223 @@ def phase_strategies() -> dict:
     return dict(wire=wire, train=trained, cross=cross, counts=counts)
 
 
+# ---------------------------------------------------------------------------
+# 18. telemetry and the sessions' strategy uploads at full width
+# ---------------------------------------------------------------------------
+
+
+def _counted(fn, *args, **kw):
+    """``(fn(...), its launches)``, the counters zeroed just before."""
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    return out, ops.launch_counts()
+
+
+def _plus(*parts) -> dict:
+    """Launch dicts summed, ``op`` keys as ``op.cuda``; zeros dropped."""
+    out = {}
+    for part in parts:
+        for k, v in part.items():
+            k = k if k.endswith(".cuda") else f"{k}.cuda"
+            out[k] = out.get(k, 0) + v
+    return {k: v for k, v in out.items() if v}
+
+
+def obs_engine(params, omc, fused: bool, train_peaks=None) -> dict:
+    """Phase 7's engine for OBS_ROUNDS rounds with ``obs=None``, then from
+    the same state with a live ``Obs``: the same bits, the same ledger, a
+    bundle a round, and B2 up by exactly the bundle's two decodes (old and
+    new storage) of each compressed leaf a round."""
+    cfg, name = TRAIN_CFG, "fused" if fused else "unfused"
+    sim = simulate.SimConfig(local_steps=2, client_lr=0.1)
+    spec = engine.CohortSpec(CohortPlan(num_clients=16, cohort_size=COHORT, failure_rate=0.25))
+    task = make_frame_task(d_in=cfg.d_in, n_classes=cfg.n_classes, seq_len=256, num_clients=16)
+    data_fn = lambda c, r, s: task.batch(c, r, s, 8)  # noqa: E731
+    runs = {}
+    for on in (False, True):
+        obs = Obs(run_name=f"engine_{name}", out_dir=str(OBS_DIR)) if on else None
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        (storage, hist), counts = _counted(
+            engine.run_training_vectorized, conformer, cfg, omc, sim, spec, data_fn,
+            prng.PRNGKey(0), OBS_ROUNDS, init_params=params, fused_agg=fused, obs=obs)
+        runs[on] = dict(storage=storage, history=hist, wall=time.perf_counter() - t0,
+                        counts=counts, peak=torch.cuda.max_memory_allocated(), obs=obs)
+    off, on = runs[False], runs[True]
+    require(trees_bit_equal(off["storage"], on["storage"]), f"{name}: obs moved stored bits")
+    require(off["history"] == on["history"], f"{name}: obs moved the history or the ledger")
+    obs = on["obs"]
+    recs = obs.sink.records("round")
+    require(len(recs) == OBS_ROUNDS and all(math.isfinite(r["update_norm"]) and r["update_norm"] > 0
+                                            for r in recs), f"{name}: round records {recs}")
+    for r in recs:
+        qerr = sorted(k for k in r if k.startswith("qerr/"))
+        require(("qerr_norm" in r) == (not fused) and bool(qerr) == (not fused),
+                f"{name}: qerr fields {qerr} in a {'fused' if fused else 'unfused'} round")
+        require(fused or (len(qerr) == 13 and math.isfinite(r["qerr_norm"])),
+                f"{name}: {len(qerr)} qerr leaves, qerr_norm {r.get('qerr_norm')}")
+    n_comp = sum(is_compressed(x) for _, x in tree_items(on["storage"]))
+    bundle_b2 = 2 * n_comp * OBS_ROUNDS  # predicted: old and new storage, each leaf, a round
+    want = _plus(off["counts"], {"dequantize": bundle_b2})
+    require(on["counts"] == want, f"{name}: obs launches {on['counts']}, predicted {want}")
+    require(off["counts"].get("fused_aggregate.cuda", 0) == (13 * OBS_ROUNDS if fused else 0),
+            f"{name}: B5 {off['counts']}")
+    span_s = sum(sp.dur for sp in obs.tracer.spans("wall", "round"))
+    require(len(obs.tracer.spans("wall", "round")) == OBS_ROUNDS, f"{name}: round spans")
+    del off["storage"], on["storage"]
+    print(f"  engine {name}: {OBS_ROUNDS} rounds obs off {off['wall']:.2f} s / on "
+          f"{on['wall']:.2f} s (host clock around synchronize, init included), summed round "
+          f"spans {span_s:.2f} s; storage the same bits, ledger the same bytes; B2 "
+          f"{off['counts'].get('dequantize.cuda', 0)} -> {on['counts'].get('dequantize.cuda', 0)}"
+          f" (+{bundle_b2} predicted: 2 x {n_comp} leaves x {OBS_ROUNDS} rounds), B1 "
+          f"{on['counts'].get('quantize_stats.cuda', 0)} and B5 "
+          f"{on['counts'].get('fused_aggregate.cuda', 0)} unchanged; peak off "
+          f"{off['peak'] / 1e9:.2f} / on {on['peak'] / 1e9:.2f} GB"
+          + (f" (phase 7's {name} run: {train_peaks[name] / 1e9:.2f} GB)" if train_peaks else ""))
+    print("    " + "; ".join(
+        f"round {r['round']}: update_norm {r['update_norm']:.5g}"
+        + (f", qerr_norm {r['qerr_norm']:.5g}" if "qerr_norm" in r else "") for r in recs))
+    return dict(obs=obs, counts=_plus(off["counts"], on["counts"]), off_s=off["wall"],
+                on_s=on["wall"], span_s=span_s, peak=(off["peak"], on["peak"]))
+
+
+def obs_sessions(params, omc) -> dict:
+    """One sync round of ``FLSession``/``FLClient`` at cohort 4 of 8 under
+    top-k 0.1 with S1E3M7 values and error feedback, under a live ``Obs``:
+    each upload's body the plan's bytes, each part's launches as predicted
+    from the selected and compressed leaves, the residual on the card."""
+    cfg, specs = TRAIN_CFG, conformer.param_specs(TRAIN_CFG)
+    strategy = compress.get_strategy(**OBS_SESSION_STRATEGY)
+    require(strategy.error_feedback and strategy.upload_only, f"{strategy.label}: EF upload")
+    table = accounting.build_wire_table(params, specs, omc)
+    plan_bytes, n_sel = table.download_bytes_strategy(strategy), len(table.names)
+    obs = Obs(run_name="sessions_topk", out_dir=str(OBS_DIR))
+    sess = FLSession(conformer, cfg, omc, plan=SESSION_PLAN, init_params=params,
+                     strategy=strategy, obs=obs)
+    n_comp = sum(is_compressed(x) for _, x in tree_items(sess.storage))
+    train_fn = session_sgd(cfg, "cuda")
+    clients = {c: FLClient(c, conformer, cfg, omc, train_fn, strategy=strategy, obs=obs)
+               for c in range(SESSION_PLAN.num_clients)}
+    wire = wire_prediction(strategy, n_sel)
+    t0 = time.perf_counter()
+    ticket, got = _counted(sess.begin_round)
+    parts = {"begin_round": (got, _plus({"pack": n_comp}))}
+    bodies = []
+    for cid in ticket.client_ids:
+        blob, got = _counted(clients[cid].run_round, ticket)
+        # the download's parse and decode, the upload's encode, the residual's decode
+        parts[f"client {cid}"] = (got, _plus({"unpack": n_comp, "dequantize": n_comp},
+                                             wire["encode"], wire["decode"]))
+        bodies.append(codecs.peek_payload(blob).body_bytes)
+        _, got = _counted(sess.ingest, cid, blob)
+        # the frame's decode, and the base the update lands on
+        parts[f"ingest {cid}"] = (got, _plus(wire["parse"], wire["decode"],
+                                             {"dequantize": n_comp}))
+        res = clients[cid]._residual
+        require(res is not None and all(x.is_cuda for _, x in tree_items(res)),
+                f"client {cid}: the residual is not on the card")
+    metrics, got = _counted(sess.close_round)
+    parts["close_round"] = (got, _plus({"dequantize": n_comp, "quantize_stats": n_comp}))
+    round_s = time.perf_counter() - t0
+    for part, (got, want) in parts.items():
+        require(got == want, f"sessions {part}: launches {got}, predicted {want}")
+    require(bodies == [plan_bytes] * len(bodies),
+            f"upload bodies {bodies}, the plan's {plan_bytes}")
+    spans = obs.tracer.summary()
+    require(spans["wall:encode_payload"]["count"] == 1 + len(ticket.client_ids)
+            and spans["wall:decode_payload"]["count"] == 2 * len(ticket.client_ids),
+            f"session spans {spans}")
+    print(f"  sessions under {strategy.label} with EF, cohort 4 of 8: {round_s:.2f} s a round; "
+          f"each upload body {plan_bytes:,} B (the plan's; {plan_bytes / table.fp32_total:.2%} "
+          f"of f32), residuals on the card; launches as predicted: "
+          + "; ".join(f"{k} {v[0]}" for k, v in list(parts.items())[:3])
+          + f"; traffic {metrics}")
+    return dict(obs=obs, counts=_plus(*(got for got, _ in parts.values())), round_s=round_s,
+                body_bytes=plan_bytes)
+
+
+def obs_async(params, omc) -> dict:
+    """Two flushes of the async runtime (4 clients, buffer 2, the straggler
+    knobs) under a live ``Obs``: a ``client_round`` virtual span per
+    check-in, a ``flush`` record with its staleness list per flush."""
+    acfg, trace = straggler(OBS_ASYNC_CLIENTS, OBS_ASYNC_BUFFER)
+    obs = Obs(run_name="async", out_dir=str(OBS_DIR))
+    runner = async_engine.AsyncRunner(conformer, TRAIN_CFG, omc, ASYNC_SIM, acfg, trace,
+                                      num_clients=OBS_ASYNC_CLIENTS,
+                                      data_fn=async_data(TRAIN_CFG, OBS_ASYNC_CLIENTS),
+                                      init_params=params, obs=obs)
+    t0 = time.perf_counter()
+    _, counts = _counted(runner.run_until, flushes=2)
+    wall = time.perf_counter() - t0
+    vspans = obs.tracer.spans("virtual", "client_round")
+    checkins = sum(runner.round_counters.values())
+    require(len(vspans) == checkins > 0, f"{len(vspans)} client_round spans, {checkins} check-ins")
+    recs = obs.sink.records("flush")
+    require(len(recs) == 2, f"flush records {len(recs)}")
+    for r, h in zip(recs, runner.history):
+        st = r["staleness"]
+        require(len(st) == acfg.buffer_goal and max(st) == h["staleness_max"]
+                and abs(sum(st) / len(st) - h["staleness_mean"]) < 1e-6
+                and math.isfinite(r["update_norm"]) and "qerr_norm" in r,
+                f"flush record {r} against history {h}")
+    print(f"  async, {OBS_ASYNC_CLIENTS} clients, buffer {OBS_ASYNC_BUFFER}, 2 flushes: "
+          f"{wall:.2f} s; {len(vspans)} client_round virtual spans ({checkins} check-ins), "
+          f"flush staleness {[r['staleness'] for r in recs]}, "
+          f"{len(obs.tracer.spans('wall', 'dispatch'))} dispatch spans; launches {counts}")
+    return dict(obs=obs, counts=counts, wall=wall)
+
+
+def phase_obs(train_peaks=None) -> dict:
+    """Telemetry at full width (phase 7's configuration) and the sessions'
+    strategy uploads, under deterministic algorithms.  ``train_peaks``:
+    phase 7's peak device bytes by run (``fused``, ``unfused``), printed
+    beside phase 18's when given."""
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    try:
+        return _phase_obs(train_peaks)
+    finally:
+        torch.use_deterministic_algorithms(deterministic)
+
+
+def _phase_obs(train_peaks) -> dict:
+    shutil.rmtree(OBS_DIR, ignore_errors=True)
+    omc = OMCConfig.parse(FMT.name)
+    params = conformer.init(prng.PRNGKey(0), TRAIN_CFG, "cuda")
+    times, parts = {}, {}
+    for name, fn, args in (("engine unfused", obs_engine, (params, omc, False, train_peaks)),
+                           ("engine fused", obs_engine, (params, omc, True, train_peaks)),
+                           ("sessions", obs_sessions, (params, omc)),
+                           ("async", obs_async, (params, omc))):
+        t0 = time.perf_counter()
+        parts[name] = fn(*args)
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    sizes = {}
+    for name, part in parts.items():
+        paths = part["obs"].flush()
+        require(all(os.path.getsize(p) > 0 for p in paths.values()), f"{name}: {paths}")
+        sizes[name] = {k: os.path.getsize(p) for k, p in paths.items()}
+    out = io.StringIO()
+    jsonl = str(OBS_DIR / "engine_unfused.obs.jsonl")
+    with contextlib.redirect_stdout(out):
+        rc = obs_report.main([jsonl])
+    require(rc == 0 and "== rounds (2) ==" in out.getvalue(), f"report: {rc} {out.getvalue()}")
+    print("  exported (bytes): " + "; ".join(f"{k} {v}" for k, v in sizes.items()))
+    print("  python -m repro_torch.obs.report build/obs/engine_unfused.obs.jsonl:")
+    for line in out.getvalue().splitlines():
+        if line.strip():
+            print(f"    {line}")
+    print("  parts: " + ", ".join(f"{k} {v:.1f} s" for k, v in times.items()))
+    return dict(counts=_plus(*(p["counts"] for p in parts.values())), times=times,
+                sizes=sizes, engine={k: {kk: v for kk, v in parts[k].items() if kk != "obs"}
+                                     for k in ("engine unfused", "engine fused")})
+
+
 def min_ms(fn, reps: int = 3) -> float:
     """Best wall ms of ``fn()`` over ``reps`` calls, the card synchronized."""
     best = math.inf
@@ -2881,6 +3201,9 @@ def main() -> None:
     noniid = timed(16, "non-IID path at full width", phase_noniid)
     torch.cuda.empty_cache()
     strategies = timed(17, "strategies at full width", phase_strategies)
+    torch.cuda.empty_cache()
+    telemetry = timed(18, "telemetry and strategy sessions at full width", phase_obs,
+                      {k: r["max_memory_allocated"] for k, r in trained["runs"].items()})
     print(f"all phases: {time.perf_counter() - t0:.1f} s")
     print(json.dumps(kernel_line(kernels, {"serve": served["report"]["launch_counts"],
                                            "serve_griffin": served_g["report"]["launch_counts"],
@@ -2890,7 +3213,8 @@ def main() -> None:
                                            "async": asynced["counts"],
                                            "sessions": sessions["counts"],
                                            "noniid": noniid["counts"],
-                                           "strategies": strategies["counts"]})))
+                                           "strategies": strategies["counts"],
+                                           "obs": telemetry["counts"]})))
     print(json.dumps(dict(ok=True, device=dict(platform="gpu", kind=torch.cuda.get_device_name(0),
                                                count=torch.cuda.device_count()))))
 

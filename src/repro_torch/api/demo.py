@@ -17,8 +17,11 @@ bytes reconcile with ``state_bytes_report`` exactly and with
 than 60% of f32.  On the card the rounds run ``quantize_stats``,
 ``dequantize`` and ``pack``/``unpack``, and the served transformer's block
 matrices go through ``dequant_matmul``.  ``--smoke`` writes its traffic
-record to ``experiments/bench_torch/api_demo_smoke.json``.  ``--obs`` raises:
-observability is not ported yet (ROADMAP A9).
+record to ``experiments/bench_torch/api_demo_smoke.json``.  ``--obs`` records
+the run's telemetry (the sessions' and clients' payload spans, the serve
+hot-swap, the log lines as records) and writes
+``experiments/obs/api_demo.{obs.jsonl,perfetto.json}``, which
+``python -m repro_torch.obs.report`` renders.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ from repro_torch.federated.cohort import CohortPlan
 from repro_torch.federated.simulate import sgd_steps
 from repro_torch.federated.state import state_bytes_report
 from repro_torch.models import transformer as tr
+from repro_torch.obs import Obs
 from repro_torch.obs.log import Logger
 
 from .codecs import payload_bytes_report
@@ -58,20 +62,20 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--client-lr", type=float, default=0.05)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--quiet", action="store_true", help="suppress stderr text")
+    ap.add_argument("--quiet", action="store_true",
+                    help="suppress stderr text (records still go to --obs)")
     ap.add_argument("--obs", action="store_true",
-                    help="record telemetry (not ported yet: raises, ROADMAP A9)")
+                    help="record telemetry (obs JSONL + Perfetto trace under experiments/obs/)")
     ap.add_argument("--device", default="cuda", help="torch device (default: cuda)")
     return ap.parse_args(argv)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     args = parse_args(argv)
-    if args.obs:
-        raise NotImplementedError("--obs: observability is not ported yet (ROADMAP A9)")
     device = session_device(args.device)
     rounds = args.rounds or (2 if args.smoke else 8)
-    log = Logger(quiet=args.quiet)
+    obs = Obs(run_name="api_demo") if args.obs else None
+    log = Logger(quiet=args.quiet, obs=obs)
 
     if args.smoke:
         cfg = tr.TransformerConfig(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
@@ -92,8 +96,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         return trained
 
     plan = CohortPlan(num_clients=args.clients, cohort_size=args.cohort)
-    server = FLSession(tr, cfg, omc, plan=plan, seed=args.seed, device=device)
-    clients = {cid: FLClient(cid, tr, cfg, omc, train_fn, device=device)
+    server = FLSession(tr, cfg, omc, plan=plan, seed=args.seed, device=device, obs=obs)
+    clients = {cid: FLClient(cid, tr, cfg, omc, train_fn, device=device, obs=obs)
                for cid in range(args.clients)}
 
     # reconcile the codec's byte accounting with the core reports: exact
@@ -120,7 +124,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         if r == rounds - 1:
             # snapshot the pre-final-round model into a serving session; the
             # final round's delta payload hot-swaps against exactly it
-            serve = ServeSession.from_payload(tr, cfg, server.server_payload(), device=device)
+            serve = ServeSession.from_payload(tr, cfg, server.server_payload(), device=device,
+                                              obs=obs)
         ticket = server.begin_round()
         up_bytes = []
         for cid in ticket.client_ids:
@@ -168,7 +173,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                                         wire_bytes=wire["wire_bytes"],
                                         fp32_bytes=wire["fp32_bytes"],
                                         **{k: int(v) for k, v in t.items()}), indent=1))
-        log.info(f"wrote {os.path.normpath(path)}")
+        log.info(f"wrote {os.path.normpath(path)}", path=os.path.normpath(path))
+    if obs is not None:
+        paths = obs.flush()
+        log.info(f"wrote {paths['jsonl']} and {paths['perfetto']}", **paths)
     if not ok and enforced:
         return 1
     return 0

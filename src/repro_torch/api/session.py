@@ -20,8 +20,15 @@ Every session runs on one device, ``cuda`` unless the caller passes
 ``device="cpu"``; without a card the CUDA default raises.  On the card a
 round runs ``quantize_stats`` (``compress_params``), ``dequantize``
 (``decompress_tree``) and ``pack``/``unpack`` (the codec) as kernels.
-The sessions' strategy uploads (``strategy=``) are not ported yet (ROADMAP
-A5), nor is observability (``obs=``, ROADMAP A9): both raise.
+
+``strategy=`` (a ``repro_torch.compress`` strategy or its registry name)
+switches the *upload* direction to a zoo compressor (DESIGN.md §12):
+clients send strategy-encoded frames, for upload-only strategies their
+update with an error-feedback residual where the strategy keeps one, and
+the server reconstructs each report (:func:`_reported_model`); downloads
+stay the compressed OMC state.  ``obs=`` (a ``repro_torch.obs.Obs``) records
+``encode_payload``, ``decode_payload``, ``flush`` and ``hot_swap`` wall
+spans with their byte counts; ``obs=None`` records nothing.
 """
 
 from __future__ import annotations
@@ -40,17 +47,37 @@ from repro_torch.core.tree import tree_items, tree_map
 from repro_torch.federated import cohort as cohort_lib
 from repro_torch.federated.async_engine import flush_weights
 from repro_torch.federated.round import make_serve_fns
-from repro_torch.federated.simulate import check_unported, stack_into
+from repro_torch.federated.simulate import stack_into
 from repro_torch.federated.state import compress_params, state_bytes_report
 from repro_torch.obs import null_span
 
 from . import codecs
 
 
-def _no_strategy(strategy) -> None:
-    if strategy is not None:
-        raise NotImplementedError("the sessions' strategy uploads are not ported yet "
-                                  "(ROADMAP A5)")
+def _resolve_strategy(strategy):
+    """A strategy, its registry name, or None."""
+    if strategy is None or not isinstance(strategy, str):
+        return strategy
+    from repro_torch.compress import get_strategy  # the zoo imports this package's codec
+
+    return get_strategy(strategy)
+
+
+def _reported_model(tree, base_storage, strategy):
+    """The server's f32 view of one decoded upload (DESIGN.md §12).
+
+    ``strategy=None``: the OMC path, the report decoded.  Upload-only
+    strategies send the client's *update*, so the report is
+    ``base + update`` (a sparse frame's zeros off its support never shrink
+    the aggregated model); dense strategies send the whole model."""
+    from repro_torch.compress import decode_tree
+
+    if strategy is None:
+        return decompress_tree(tree)
+    decoded = decode_tree(tree)
+    if not strategy.upload_only:
+        return decoded
+    return tree_map(torch.add, decompress_tree(base_storage), decoded)
 
 
 def _tree_device(tree) -> torch.device:
@@ -160,6 +187,11 @@ class FLSession:
     ``init_params`` is an f32 tree of the port's tensors (for instance
     ``interop.params_from_numpy`` of the reference's init); without it the
     family's init is drawn from ``PRNGKey(seed)`` on ``device``.
+
+    ``strategy`` (a strategy or a registry name) switches the uploads to a
+    zoo compressor: for upload-only strategies each report carries the
+    client's update and ``ingest`` reconstructs ``download + update``;
+    downloads stay the compressed-at-rest OMC state either way.
     """
 
     def __init__(self, family, cfg, omc: OMCConfig, *,
@@ -167,14 +199,13 @@ class FLSession:
                  seed: int = 0, init_params=None,
                  profile_fn: Optional[Callable[[int], str]] = None, strategy=None, obs=None,
                  device="cuda"):
-        _no_strategy(strategy)
-        check_unported(obs=obs)
         self.device = session_device(device)
         self.family = family
         self.cfg = cfg
         self.omc = omc
         self.plan = plan
-        self.obs = None
+        self.strategy = _resolve_strategy(strategy)
+        self.obs = obs  # None records nothing and changes nothing
         self.profile_fn = profile_fn
         self.server_lr = float(server_lr)
         self.specs = family.param_specs(cfg)
@@ -235,7 +266,8 @@ class FLSession:
         with null_span(self.obs, "decode_payload", client=client_id, bytes=len(blob)):
             tree, info = codecs.decode_payload(blob, base=self.storage, device=self.device)
         row = self._report_rows.setdefault(client_id, len(self._report_rows))
-        self._report_stack = stack_into(self._report_stack, row, decompress_tree(tree),
+        self._report_stack = stack_into(self._report_stack, row,
+                                        _reported_model(tree, self.storage, self.strategy),
                                         len(self._ticket.client_ids))
         self.traffic["up_bytes"] += info.total_bytes
         self.traffic["up_fp32_bytes"] += self._fp32_bytes
@@ -330,7 +362,8 @@ class FLSession:
         with null_span(self.obs, "decode_payload", client=client_id, bytes=len(blob)):
             tree, info = codecs.decode_payload(blob, base=base, device=self.device)
         self._async_stack = stack_into(self._async_stack, len(self._async_buffer),
-                                       decompress_tree(tree), self.async_cfg["buffer_goal"])
+                                       _reported_model(tree, base, self.strategy),
+                                       self.async_cfg["buffer_goal"])
         self._async_buffer.append((client_id, ticket.server_version))
         self.traffic["up_bytes"] += info.total_bytes
         self.traffic["up_fp32_bytes"] += self._fp32_bytes
@@ -383,31 +416,69 @@ class FLClient:
     ``device``.  The upload is re-compressed under the session policy and
     delta-encoded against the received model, so unchanged codes cost
     about 0 wire bytes.
+
+    With a ``strategy`` (the session's) the upload is strategy-encoded
+    instead: dense strategies send the whole trained model, upload-only
+    ones the update ``trained - received``, with an error-feedback residual
+    carried across this client's rounds where the strategy keeps one.  The
+    residual is exactly ``compensated - decode(encode(compensated))``, so
+    client and server never disagree on what was dropped, and it lives on
+    the client's device.  ``obs`` times the download's decode and the
+    upload's encode.
     """
 
     def __init__(self, client_id: int, family, cfg, omc: OMCConfig,
-                 train_fn: Callable[[Any, int, int], Any], strategy=None, *, device="cuda"):
-        _no_strategy(strategy)
+                 train_fn: Callable[[Any, int, int], Any], strategy=None, *, device="cuda",
+                 obs=None):
         self.device = session_device(device)
         self.client_id = client_id
         self.specs = family.param_specs(cfg)
         self.omc = omc
         self.train_fn = train_fn
+        self.strategy = _resolve_strategy(strategy)
+        self.obs = obs
         self._cache = None  # last decoded download tree (this client's model)
         self._cache_digest = 0
+        self._residual = None  # error-feedback accumulator (EF strategies)
 
     def run_round(self, ticket: RoundTicket) -> bytes:
         use_delta = (ticket.delta_payload is not None and self._cache is not None
                      and ticket.delta_base_digest == self._cache_digest)
         blob = ticket.payload_for(has_previous_round=use_delta)
-        tree, _ = codecs.decode_payload(blob, base=self._cache if use_delta else None,
-                                        device=self.device)
+        with null_span(self.obs, "decode_payload", client=self.client_id, bytes=len(blob)):
+            tree, _ = codecs.decode_payload(blob, base=self._cache if use_delta else None,
+                                            device=self.device)
         self._cache = tree
         self._cache_digest = codecs.tree_digest(tree)
-        trained = self.train_fn(decompress_tree(tree), self.client_id, ticket.round_index)
-        upload_tree = compress_params(trained, self.specs, self.omc) if self.omc.enabled \
-            else trained
-        return codecs.encode_payload(upload_tree, base=tree, round_index=ticket.round_index)
+        params = decompress_tree(tree)
+        trained = self.train_fn(params, self.client_id, ticket.round_index)
+        with null_span(self.obs, "encode_payload", client=self.client_id) as a:
+            if self.strategy is not None:
+                up = self._strategy_upload(params, trained, ticket.round_index)
+            else:
+                upload_tree = compress_params(trained, self.specs, self.omc) \
+                    if self.omc.enabled else trained
+                up = codecs.encode_payload(upload_tree, base=tree,
+                                           round_index=ticket.round_index)
+            a["bytes"] = len(up)
+        return up
+
+    def _strategy_upload(self, received, trained, round_index: int) -> bytes:
+        from repro_torch.compress import decode_tree, encode_tree
+
+        with torch.no_grad():
+            if not self.strategy.upload_only:
+                upload_tree = encode_tree(self.strategy, trained, self.omc, self.specs)
+                return codecs.encode_payload(upload_tree, round_index=round_index)
+            comp = tree_map(torch.sub, trained, received)
+            if self.strategy.error_feedback:
+                if self._residual is None:
+                    self._residual = tree_map(torch.zeros_like, comp)
+                comp = tree_map(torch.add, comp, self._residual)
+            upload_tree = encode_tree(self.strategy, comp, self.omc, self.specs)
+            if self.strategy.error_feedback:
+                self._residual = tree_map(torch.sub, comp, decode_tree(upload_tree))
+            return codecs.encode_payload(upload_tree, round_index=round_index)
 
 
 class ServeSession:
@@ -415,18 +486,17 @@ class ServeSession:
 
     The session runs on the device its storage tree lives on; payloads are
     decoded onto that device.  ``compute_dtype`` is float32 only (the
-    reference's default), and ``obs`` only None (ROADMAP A9).
+    reference's default); ``obs`` times each ``hot_swap``.
     """
 
     def __init__(self, family, cfg, storage, compute_dtype=torch.float32, obs=None):
         if compute_dtype != torch.float32:
             raise ValueError(f"compute_dtype {compute_dtype} is not supported: the port serves "
                              f"in torch.float32 only")
-        check_unported(obs=obs)
         self.family = family
         self.cfg = cfg
         self.storage = storage
-        self.obs = None
+        self.obs = obs
         self.device = _tree_device(storage)
         self._prefill, self._decode = make_serve_fns(family, cfg)
         self.swaps = 0

@@ -38,8 +38,13 @@ error-feedback strategy ``runner.ef`` holds one residual row per client,
 which each lane gathers before it trains and writes back after (the lanes
 train one after another, so no pad lane exists to discard), and the
 checkpoint carries it.  ``fused_agg=True`` with a strategy raises, as in
-the reference.  ``obs`` and ``population`` raise until observability and
-the population store are ported (ROADMAP A9).
+the reference.  ``obs`` (a ``repro_torch.obs.Obs``, DESIGN.md §15) adds a
+``client_round`` virtual span per check-in (its sampled latency on the
+virtual clock), ``dispatch`` and ``flush`` wall spans, and a ``flush``
+record per flush with the staleness list and the wire ledger; with metrics
+on, the unfused flush hands back the buffer mean it already computed and
+the bundle is built from it afterwards.  ``population`` raises until the
+population store is ported (ROADMAP A9).
 """
 
 from __future__ import annotations
@@ -53,12 +58,14 @@ import torch
 
 from repro_torch.core.omc import OMCConfig
 from repro_torch.core.store import decompress_tree
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import null_span
 
 from . import accounting
 from . import cohort as cohort_lib
 from . import simulate
 from .engine import apply_server_step, fused_server_step
-from .simulate import SimConfig, check_unported
+from .simulate import SimConfig
 from .state import compress_params
 from .traces import ClientTrace, FixedTrace
 
@@ -148,25 +155,22 @@ class AsyncConfig:
 # ---------------------------------------------------------------------------
 
 
-def _no_metrics(collect_metrics: bool) -> None:
-    if collect_metrics:
-        raise NotImplementedError("metric bundles (collect_metrics) are not ported yet "
-                                  "(ROADMAP A9)")
-
-
 def make_flush_fn(specs, omc: OMCConfig, sim: SimConfig, collect_metrics: bool = False):
     """``(storage, stacked[K, ...], weights[K]) -> new storage``: the
     staleness-weighted FedBuff step — decode, weighted mean over the buffer
     (renormalized, :func:`.cohort.aggregate_weighted`), interpolation with
     ``sim.server_lr`` and re-compress.  With unit weights this is the sync
-    engine's ``finish`` on an all-alive cohort of size K."""
-    _no_metrics(collect_metrics)
+    engine's ``finish`` on an all-alive cohort of size K.
+
+    ``collect_metrics=True`` returns ``(new storage, mean)``: the buffer mean
+    the flush interpolated toward, for the metric bundle."""
 
     def flush_fn(storage, stacked, weights):
         with torch.no_grad():
             mean_model = cohort_lib.aggregate_weighted(stacked, weights)
-            return apply_server_step(decompress_tree(storage), mean_model, specs, omc,
-                                     sim.server_lr)
+            new = apply_server_step(decompress_tree(storage), mean_model, specs, omc,
+                                    sim.server_lr)
+            return (new, mean_model) if collect_metrics else new
 
     return flush_fn
 
@@ -177,12 +181,14 @@ def make_fused_flush_fn(specs, omc: OMCConfig, sim: SimConfig, collect_metrics: 
 
     The entries are transport-encoded already, so this is the sync engine's
     fused server step (:func:`.engine.fused_server_step`) with the flush
-    weights: one ``fused_aggregate`` launch per selected leaf."""
-    _no_metrics(collect_metrics)
+    weights: one ``fused_aggregate`` launch per selected leaf.  With
+    ``collect_metrics`` it returns ``(new storage, None)``: no f32 buffer mean
+    exists in the code domain, and the bundle is the update norm alone."""
 
     def flush_fn(storage, stacked, weights):
         with torch.no_grad():
-            return fused_server_step(storage, stacked, weights, specs, omc, sim.server_lr)
+            new = fused_server_step(storage, stacked, weights, specs, omc, sim.server_lr)
+            return (new, None) if collect_metrics else new
 
     return flush_fn
 
@@ -231,7 +237,6 @@ class AsyncRunner:
         if population is not None:
             raise NotImplementedError("population-backed counters (population=) wait for "
                                       "scale.store (ROADMAP A9)")
-        check_unported(obs=obs)
         if init_key is None and init_params is None:
             raise ValueError("need init_key or init_params")
         if fused_agg and (strategy is not None or not omc.enabled):
@@ -254,11 +259,15 @@ class AsyncRunner:
                    if takes_ef else None)
         self._client_fn = simulate.make_client_fn(family, cfg, self.specs, omc, sim, strategy,
                                                   ste, takes_residual=takes_ef)
+        # telemetry (DESIGN.md §15): obs=None is a strict no-op, the same
+        # flush and no spans or records
+        self.obs = obs
+        self._collect_metrics = obs is not None and obs.collect_metrics
         # fused mode (§13): buffer entries live transport-encoded and the
         # flush aggregates in the compressed domain
         self.fused_agg = bool(fused_agg)
         make = make_fused_flush_fn if self.fused_agg else make_flush_fn
-        self._flush_fn = make(self.specs, omc, sim)
+        self._flush_fn = make(self.specs, omc, sim, collect_metrics=self._collect_metrics)
         self.stats = (accounting.AsyncWireStats(
             accounting.build_wire_table(params, self.specs, omc), strategy=strategy)
             if wire else None)
@@ -337,6 +346,9 @@ class AsyncRunner:
         heapq.heappush(self._heap, (t + latency, _PRIO_UPLOAD, cid))
         if self.stats is not None:
             self.stats.start_round(self.omc, rnd, cid)
+        if self.obs is not None:
+            # constructed, never timed: the loop knows both ends at check-in
+            self.obs.vspan("client_round", t, latency, client=cid, version=base, round=rnd)
         return dict(event="checkin", client=cid, t=t, version=base, round=rnd, latency=latency)
 
     def _on_upload(self, cid: int, t: float) -> Dict[str, Any]:
@@ -378,24 +390,28 @@ class AsyncRunner:
                      if p.base_version == base and (base, c) not in self.trained]
             with torch.no_grad():
                 server_f32 = decompress_tree(self.version_storages[base])
-            for c, rnd in group:
-                batches = simulate.client_batches(self.data_fn, c, rnd, self.sim.local_steps)
-                if self.ef is not None:
-                    model, loss, rows = self._client_fn(server_f32, batches, rnd, c,
-                                                        {k: v[c] for k, v in self.ef.items()})
-                    for k, v in self.ef.items():
-                        v[c] = rows[k]
-                    del rows
-                else:
-                    model, loss = self._client_fn(server_f32, batches, rnd, c)
-                if self.fused_agg:
-                    # transport-encode at once (§13): the cached upload, and
-                    # later the buffer, holds codes, not f32 trees
-                    with torch.no_grad():
-                        model = compress_params(model, self.specs, self.omc)
-                self.trained[(base, c)] = (model, float(loss))
+            with null_span(self.obs, "dispatch", version=base, lanes=len(group)):
+                for c, rnd in group:
+                    self._train_lane(server_f32, base, c, rnd)
             del server_f32
         return self.trained.pop(key)
+
+    def _train_lane(self, server_f32, base: int, c: int, rnd: int) -> None:
+        batches = simulate.client_batches(self.data_fn, c, rnd, self.sim.local_steps)
+        if self.ef is not None:
+            model, loss, rows = self._client_fn(server_f32, batches, rnd, c,
+                                                {k: v[c] for k, v in self.ef.items()})
+            for k, v in self.ef.items():
+                v[c] = rows[k]
+            del rows
+        else:
+            model, loss = self._client_fn(server_f32, batches, rnd, c)
+        if self.fused_agg:
+            # transport-encode at once (§13): the cached upload, and later
+            # the buffer, holds codes, not f32 trees
+            with torch.no_grad():
+                model = compress_params(model, self.specs, self.omc)
+        self.trained[(base, c)] = (model, float(loss))
 
     def _gc_versions(self) -> None:
         live = {p.base_version for p in self.pending.values()}
@@ -416,8 +432,20 @@ class AsyncRunner:
         for i, e in enumerate(entries):  # each upload dropped once in its row
             stacked = simulate.stack_into(stacked, i, e.model, len(entries))
             e.model = None
-        self.storage = self._flush_fn(self.storage, stacked, w)
-        del stacked
+        bundle = None
+        with null_span(self.obs, "flush", version=self.version, buffer=len(entries)):
+            old_storage = self.storage
+            out = self._flush_fn(self.storage, stacked, w)
+            del stacked
+            if self._collect_metrics:
+                # built after the flush (DESIGN.md §15): the flush's own
+                # arithmetic never sees it
+                self.storage, mean_model = out
+                bundle = obs_metrics.server_round_bundle(self.specs, old_storage, self.storage,
+                                                         mean_model, self.sim.server_lr)
+            else:
+                self.storage = out
+            del old_storage, out
         self.version += 1
         rec = dict(
             version=self.version,
@@ -432,6 +460,8 @@ class AsyncRunner:
         if self.stats is not None:
             rec.update(self.stats.snapshot())
         self.history.append(rec)
+        if self.obs is not None:
+            self.obs.record("flush", bundle, staleness=[float(s) for s in staleness], **rec)
         self._gc_versions()
 
     # -- driving ------------------------------------------------------------

@@ -29,10 +29,13 @@ error-feedback strategy ``ef`` holds the population's residuals, each
 client gathering its rows before it trains and the surviving clients'
 rows written back after (a dead client keeps its residual, as in the
 reference).  A strategy runs the unfused server round: ``fused_agg=True``
-with a strategy raises ``ValueError``, as in the reference.  ``obs``
-belongs to a later slice (ROADMAP A9) and raises ``NotImplementedError``;
-``data_mode`` is accepted for the reference's signature, and both modes
-draw batches on the host side of the loop.
+with a strategy raises ``ValueError``, as in the reference.  ``obs`` (a
+``repro_torch.obs.Obs``, DESIGN.md §15) times each round in a wall span and
+records it; with metrics on, the unfused round hands back the cohort mean
+it already computed and the bundle is built from it after the round, so the
+stored tree is the same bits as with ``obs=None``.  ``data_mode`` is
+accepted for the reference's signature, and both modes draw batches on the
+host side of the loop.
 """
 
 from __future__ import annotations
@@ -53,11 +56,13 @@ from repro_torch.core.store import (CompressedVariable, compress_variable, decom
                                     is_compressed)
 from repro_torch.core.tree import tree_map, tree_map_with_path
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import null_span
 
 from . import accounting
 from . import cohort as cohort_lib
 from . import simulate
-from .simulate import SimConfig, check_unported
+from .simulate import SimConfig
 from .state import compress_params, n_stack_axes
 
 
@@ -294,12 +299,14 @@ def make_round_fn(family, cfg, specs, omc: OMCConfig, sim: SimConfig, spec: Coho
     tensors on the device.  Under an error-feedback strategy the round
     takes the population's residuals ``ef`` and updates the surviving
     clients' rows in place.
+
+    ``collect_metrics=True`` appends, as the round's **last** output, the
+    cohort mean the unfused round already computed and interpolated toward
+    (the same tensor, not a second reduction), and ``None`` on the fused
+    path, which forms no f32 mean; nothing else in the round changes.
     """
     if data_mode not in ("vmap", "host"):
         raise ValueError(f"data_mode must be 'vmap' or 'host', got {data_mode!r}")
-    if collect_metrics:
-        raise NotImplementedError("metric bundles (collect_metrics) are not ported yet "
-                                  "(ROADMAP A9)")
     if fused_agg and not fused_aggregation_supported(spec, omc, strategy):
         raise ValueError("fused_agg=True needs a homogeneous cohort, OMC enabled, and no "
                          "compression strategy")
@@ -317,7 +324,8 @@ def make_round_fn(family, cfg, specs, omc: OMCConfig, sim: SimConfig, spec: Coho
     def finish(server_f32, stacked, loss_c, alive):
         w, loss, n_alive = losses_and_weights(loss_c, alive)
         mean_model = cohort_lib.aggregate_weighted(zero_dead_rows_(stacked, alive), w)
-        return apply_server_step(server_f32, mean_model, specs, omc, sim.server_lr), loss, n_alive
+        new = apply_server_step(server_f32, mean_model, specs, omc, sim.server_lr)
+        return (new, loss, n_alive) + ((mean_model,) if collect_metrics else ())
 
     def finish_fused(storage, stacked, loss_c, alive):
         w, loss, n_alive = losses_and_weights(loss_c, alive)
@@ -331,7 +339,8 @@ def make_round_fn(family, cfg, specs, omc: OMCConfig, sim: SimConfig, spec: Coho
             return zero_dead_rows_(stack, alive)
 
         encoded = tree_map_with_path(encode, specs, storage, stacked)
-        return fused_server_step(storage, encoded, w, specs, omc, sim.server_lr), loss, n_alive
+        new = fused_server_step(storage, encoded, w, specs, omc, sim.server_lr)
+        return (new, loss, n_alive) + ((None,) if collect_metrics else ())
 
     def round_fn(storage, ids_per_tier, alive, round_index: int, ef=None):
         if takes_ef and ef is None:
@@ -364,6 +373,7 @@ def make_round_fn(family, cfg, specs, omc: OMCConfig, sim: SimConfig, spec: Coho
                 return finish_fused(storage, stacked, torch.stack(losses), alive)
             return finish(server_f32, stacked, torch.stack(losses), alive)
 
+    round_fn.collect_metrics = collect_metrics
     return round_fn
 
 
@@ -376,25 +386,56 @@ def run_round_vectorized(family, cfg, specs, omc: OMCConfig, sim: SimConfig, ser
     contribute weight 0 (the same mean as dropping them); the server
     interpolates toward the cohort mean and re-compresses.  ``strategy``,
     ``ste`` and ``ef`` as in the loop (``simulate.run_round``): an EF
-    strategy without ``ef`` raises ``ValueError``."""
-    check_unported(obs)
+    strategy without ``ef`` raises ``ValueError``.
+
+    ``obs`` times the round in a ``round`` wall span and records it with the
+    byte ledger; with ``obs.collect_metrics`` the metric bundle (update,
+    quantization-error and EF residual norms) is built after the round from
+    its outputs and its cohort mean.  A cached ``round_fn`` must have been
+    built with the matching ``collect_metrics``, else ``ValueError`` (the
+    reference builds the bundle without the mean instead, ROADMAP C21)."""
     takes_ef = simulate.ef_lib.takes_residual(omc, strategy)
     if takes_ef and ef is None:
         raise ValueError(f"strategy {strategy.label!r} uses error feedback: pass the ef= "
                          f"state (repro_torch.compress.feedback.init_ef_state)")
+    collect = obs is not None and obs.collect_metrics
     if round_fn is None:
         round_fn = make_round_fn(family, cfg, specs, omc, sim, spec, data_fn, data_mode,
-                                 strategy=strategy, ste=ste, fused_agg=fused_agg)
+                                 strategy=strategy, ste=ste, fused_agg=fused_agg,
+                                 collect_metrics=collect)
+    elif getattr(round_fn, "collect_metrics", False) != collect:
+        raise ValueError(f"round_fn was built with collect_metrics="
+                         f"{getattr(round_fn, 'collect_metrics', False)} but this round "
+                         f"{'collects' if collect else 'does not collect'} metrics: build it "
+                         f"with make_round_fn(collect_metrics={collect})")
     ids_per_tier = sample_tiered_cohort(key, spec, round_index)
     alive = cohort_lib.survival_mask(key, spec.plan, round_index)
-    new_storage, loss, n_alive = round_fn(server_params, ids_per_tier, alive, round_index,
-                                          **(dict(ef=ef) if takes_ef else {}))
+    with null_span(obs, "round", round=int(round_index)):
+        res = round_fn(server_params, ids_per_tier, alive, round_index,
+                       **(dict(ef=ef) if takes_ef else {}))
+    new_storage, loss, n_alive = res[:3]
+    bundle = None
+    if collect:
+        # built after the round, from its outputs: the round's own
+        # arithmetic never sees it (DESIGN.md §15)
+        bundle = obs_metrics.server_round_bundle(specs, server_params, new_storage,
+                                                 res[3],
+                                                 sim.server_lr)
+        bundle["loss"] = loss
+        bundle["alive"] = n_alive
+        if takes_ef:
+            ids_all = torch.cat(list(ids_per_tier))
+            bundle["ef_norm"] = obs_metrics.ef_rows_norm(
+                {k: v[ids_all.to(v.device)] for k, v in ef.items()})
+    del res
     n_alive = int(n_alive)
     metrics: Dict[str, float] = dict(loss=float(loss), cohort=n_alive,
                                      dropped=int(spec.plan.cohort_size - n_alive))
     if wire_table is not None:
         metrics.update(round_wire_metrics(wire_table, omc, spec.tier_omcs(omc), ids_per_tier,
                                           alive, round_index, strategy=strategy))
+    if obs is not None:
+        obs.record("round", bundle, round=int(round_index), **metrics)
     return new_storage, metrics
 
 
@@ -433,13 +474,15 @@ def run_training_vectorized(family, cfg, omc: OMCConfig, sim: SimConfig, spec: C
     """Mirror of :func:`simulate.run_training` through the engine.  History
     rows carry ``down_bytes`` / ``up_bytes`` when ``wire=True``.  Runs where
     ``init_params`` lie, else on ``device`` (default the card).  Under an EF
-    strategy ``ef`` is updated in place (allocated here when None)."""
-    check_unported(obs)
+    strategy ``ef`` is updated in place (allocated here when None).
+    ``obs`` attaches telemetry: a ``round`` wall span and record per round,
+    with the metric bundle when ``obs.collect_metrics``."""
     specs = family.param_specs(cfg)
     params, storage = simulate.init_storage(family, cfg, omc, specs, init_key, init_params,
                                             device)
     round_fn = make_round_fn(family, cfg, specs, omc, sim, spec, data_fn, data_mode,
-                             strategy=strategy, ste=ste, fused_agg=fused_agg)
+                             strategy=strategy, ste=ste, fused_agg=fused_agg,
+                             collect_metrics=obs is not None and obs.collect_metrics)
     if ef is None and simulate.ef_lib.takes_residual(omc, strategy):
         ef = simulate.ef_lib.init_ef_state(params, specs, omc, spec.plan.num_clients)
     table = accounting.build_wire_table(params, specs, omc) if wire else None
@@ -450,7 +493,7 @@ def run_training_vectorized(family, cfg, omc: OMCConfig, sim: SimConfig, spec: C
         storage, metrics = run_round_vectorized(family, cfg, specs, omc, sim, storage, data_fn,
                                                 spec, r, key, round_fn=round_fn,
                                                 wire_table=table, data_mode=data_mode,
-                                                strategy=strategy, ste=ste, ef=ef)
+                                                strategy=strategy, ste=ste, ef=ef, obs=obs)
         if eval_fn is not None and (r + 1) % eval_every == 0:
             metrics["eval"] = float(eval_fn(decompress_tree(storage), r))
         history.append(dict(round=r, **metrics))

@@ -24,9 +24,10 @@ directions; sparse upload-only ones (top-k, ternary, pipeline) train on the
 dense download and compress the update ``trained - received`` on the way up,
 with a per-client error-feedback residual (``ef``,
 ``repro_torch.compress.feedback``) where the strategy keeps one.  ``ste``
-takes the straight-through form of the strategy's qdq.  Observability
-(``obs``) belongs to a later slice (ROADMAP A9) and raises
-``NotImplementedError``.
+takes the straight-through form of the strategy's qdq.  ``obs`` (a
+``repro_torch.obs.Obs``, DESIGN.md §15) adds a ``round`` wall span and a
+``round`` record whose metric bundle is built from the loop's own f32 mean
+after the round, so the stored tree is the same bits as with ``obs=None``.
 """
 
 from __future__ import annotations
@@ -43,16 +44,12 @@ from repro_torch.core.policy import path_str
 from repro_torch.core.store import CompressedVariable, decompress_tree, is_compressed
 from repro_torch.core.tree import tree_items, tree_map, tree_map_with_path
 from repro_torch.models.common import IDENTITY_MAT
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import null_span
 
 from . import accounting
 from . import cohort as cohort_lib
 from .state import compress_params, n_stack_axes
-
-
-def check_unported(obs=None) -> None:
-    """Raise for the arguments of later slices instead of ignoring them."""
-    if obs is not None:
-        raise NotImplementedError("observability (obs=) is not ported yet (ROADMAP A9)")
 
 
 class _LazyEF:
@@ -280,8 +277,9 @@ def run_round(family, cfg, specs, omc: OMCConfig, sim: SimConfig, server_params,
     two are equal to the byte).  ``strategy``/``ste`` train under a zoo
     compressor; ``ef`` is the population's error-feedback state
     (``feedback.init_ef_state``), whose rows of the surviving clients are
-    updated in place, and an EF strategy without it raises ``ValueError``."""
-    check_unported(obs)
+    updated in place, and an EF strategy without it raises ``ValueError``.
+    ``obs`` records the round with its metric bundle, built from the f32
+    mean the server interpolated toward, after the round's arithmetic."""
     takes_ef = ef_lib.takes_residual(omc, strategy)
     if takes_ef and ef is None:
         raise ValueError(f"strategy {strategy.label!r} uses error feedback: pass the ef= "
@@ -328,6 +326,17 @@ def run_round(family, cfg, specs, omc: OMCConfig, sim: SimConfig, server_params,
         metrics["down_bytes"] = (accounting.download_bytes_train(wire_table, omc, strategy)
                                  * plan.cohort_size)
         metrics["up_bytes"] = int(up_bytes)
+    if obs is not None:
+        bundle = None
+        if obs.collect_metrics:
+            bundle = obs_metrics.server_round_bundle(specs, server_f32, new_storage,
+                                                     mean_model, sim.server_lr)
+            bundle["alive"] = torch.tensor(float(len(models)), device=dev)
+            if takes_ef:
+                rows = torch.tensor(ids, dtype=torch.int64)
+                bundle["ef_norm"] = obs_metrics.ef_rows_norm(
+                    {k: v[rows.to(v.device)] for k, v in ef.items()})
+        obs.record("round", bundle, round=int(round_index), **metrics)
     return new_storage, metrics
 
 
@@ -359,8 +368,8 @@ def run_training(family, cfg, omc: OMCConfig, sim: SimConfig, plan: cohort_lib.C
     from a random init seeded by ``init_key``; the cohort stream is
     ``fold_in(init_key, 0xC047)``, as in the reference.  Under an EF
     strategy pass ``ef=feedback.init_ef_state(...)`` to see the final
-    residuals (updated in place), or leave it None to have one allocated."""
-    check_unported(obs)
+    residuals (updated in place), or leave it None to have one allocated.
+    ``obs`` adds a ``round`` wall span and record per round."""
     specs = family.param_specs(cfg)
     params, storage = init_storage(family, cfg, omc, specs, init_key, init_params, device)
     client_update = make_client_update(family, cfg, specs, omc, sim, strategy, ste)
@@ -370,9 +379,11 @@ def run_training(family, cfg, omc: OMCConfig, sim: SimConfig, plan: cohort_lib.C
     key = prng.fold_in(init_key, 0xC047)
     history = []
     for r in range(num_rounds):
-        storage, metrics = run_round(family, cfg, specs, omc, sim, storage, data_fn, plan, r,
-                                     key, client_update=client_update, wire_table=wire_table,
-                                     strategy=strategy, ste=ste, ef=ef)
+        with null_span(obs, "round", round=r):
+            storage, metrics = run_round(family, cfg, specs, omc, sim, storage, data_fn, plan,
+                                         r, key, client_update=client_update,
+                                         wire_table=wire_table, strategy=strategy, ste=ste,
+                                         ef=ef, obs=obs)
         if eval_fn is not None and (r + 1) % eval_every == 0:
             metrics["eval"] = float(eval_fn(decompress_tree(storage), r))
         history.append(dict(round=r, **metrics))

@@ -518,7 +518,7 @@ def test_in_flight_accounting(init):
 
 @pytest.mark.parametrize("kw,err,match", [
     (dict(strategy="topk", fused_agg=True), ValueError, "no zoo strategy"),
-    (dict(obs=object()), NotImplementedError, "ROADMAP A9"),
+    (dict(obs=object()), AttributeError, "collect_metrics"),  # not an Obs: refused
     (dict(population=object()), NotImplementedError, "ROADMAP A9"),
     (dict(fused_agg=True, omc="S1E8M23"), ValueError, "OMC enabled"),
 ], ids=["fused_with_strategy", "obs", "population", "fused_without_omc"])
@@ -532,8 +532,13 @@ def test_unported_and_invalid_arguments_raise(kw, err, match):
         async_engine.AsyncRunner(cf, CFG, omc, sim(), async_engine.AsyncConfig(2),
                                  traces.FixedTrace(), num_clients=4, data_fn=data,
                                  init_key=prng.PRNGKey(0), device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        async_engine.make_flush_fn({}, OMCConfig.parse(FMT), sim(), collect_metrics=True)
+    # metric bundles landed with obs: the flush hands back the buffer mean it
+    # interpolated toward (f32 storage here: S1E8M23 at fraction 1 is OMC off)
+    flush = async_engine.make_flush_fn({}, OMCConfig.parse("S1E8M23", quantize_fraction=1.0),
+                                       sim(), collect_metrics=True)
+    new, mean = flush({"w": torch.ones(3)}, {"w": torch.stack([torch.zeros(3), 4 * torch.ones(3)])},
+                      torch.tensor([3.0, 1.0]))
+    assert torch.equal(mean["w"], torch.ones(3)) and torch.equal(new["w"], torch.ones(3))
 
 
 @pytest.mark.parametrize("kw", [dict(strategy="topk"), dict(ste=True)], ids=["strategy", "ste"])

@@ -80,6 +80,14 @@ def test_no_source_imports_jax_or_reference(path):
     assert not bad, f"{path} imports {bad}"
 
 
+@pytest.mark.parametrize("name", ["trace", "export", "report"])
+def test_obs_tracer_export_and_report_import_the_standard_library_only(name):
+    """``python -m repro_torch.obs.report`` reads a JSONL from either package
+    with the standard library alone, as the reference's does."""
+    roots = set(_imported_roots(PORT / "obs" / f"{name}.py"))
+    assert roots <= set(sys.stdlib_module_names) | {"__future__"}, roots
+
+
 def test_serve_without_a_card_raises_instead_of_using_the_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--device cpu"):

@@ -3,19 +3,15 @@ port's against the reference's.
 
 Each package's public names (its ``__all__``; the reference's ``api`` has
 none, so its public non-module names) are compared.  The port must define
-every name it exports, export none the reference lacks, and lack exactly
-the reference's names of later slices: the six of ``Obs`` and its tracer in
-``obs`` (ROADMAP A9).  ``core`` has all of the reference's since the
-compression strategies came (ROADMAP A7).
+every name it exports, export none the reference lacks, and lack none:
+``core`` has all of the reference's since the compression strategies came
+(ROADMAP A7), ``obs`` its seven since telemetry came (ROADMAP A11).
 """
 
 import importlib
 import types
 
 import pytest
-
-A9 = {"Obs", "MetricsSink", "Tracer", "Span", "Bundle", "maybe_span"}
-
 
 def _public(mod):
     names = getattr(mod, "__all__", None)
@@ -26,7 +22,7 @@ def _public(mod):
 
 
 @pytest.mark.parametrize("pkg, missing", [("core", set()), ("api", set()), ("data", set()),
-                                          ("obs", A9)])
+                                          ("obs", set())])
 def test_package_names_match_the_reference(pkg, missing):
     ref = importlib.import_module(f"repro.{pkg}")
     port = importlib.import_module(f"repro_torch.{pkg}")
@@ -45,3 +41,6 @@ def test_package_name_counts():
 
     assert len(repro.core.__all__) == 35 and len(repro_torch.core.__all__) == 35
     assert len(repro_torch.api.__all__) == 15
+    import repro_torch.obs
+
+    assert len(repro_torch.obs.__all__) == 7

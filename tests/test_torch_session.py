@@ -21,7 +21,20 @@ Gates, on what is defined in bits:
     and a delta download decodes to the full payload's tree in the same
     bits;
   * the reference's guards, one for one, with the same exception types; the
-    client's delta choice by cache digest; serving from a payload.
+    client's delta choice by cache digest; serving from a payload;
+  * the strategy uploads (``strategy=`` on both sides) under top-k with
+    error feedback, ternary (EF) and the pipeline (EF): on the same received
+    and trained trees (carried across from numpy) ``FLClient._strategy_upload``
+    gives top-k's and the pipeline's payloads in the same bytes (the inputs
+    hold no tie at a threshold, ROADMAP C17) and ternary's of the same length
+    decoding to values within its scale's gate (ROADMAP C18: rtol 4e-6, atol
+    1e-7, as tests/test_torch_feedback.py), two rounds, the residuals within
+    1e-6 (a code flip would show as a gap of a whole scale); one session
+    round a strategy, each side decoding its own downloads (which differ in
+    the last bits: each package solves its own PVT) and adding a fixed numpy
+    update (0.02·N(0, 1) a value, so no top-k threshold lies within those
+    bits): the cohort and the upload lengths of the shape-determined
+    strategies equal, ``close_round``'s storage within the gate above.
 """
 
 import jax
@@ -40,9 +53,10 @@ from repro.models.common import IDENTITY_MAT as JIDENTITY
 from repro_torch import interop
 from repro_torch.api import codecs
 from repro_torch.api.session import FLClient, FLSession, ServeSession
+from repro_torch.compress import decode_tree
 from repro_torch.core.omc import OMCConfig
 from repro_torch.core.store import decompress_tree, is_compressed, trees_bit_equal
-from repro_torch.core.tree import tree_items, tree_map_with_path
+from repro_torch.core.tree import tree_items, tree_map, tree_map_with_path
 from repro_torch.federated.cohort import CohortPlan
 from repro_torch.federated.simulate import sgd_steps
 from repro_torch.federated.state import compress_params
@@ -311,16 +325,30 @@ def test_async_session_guards_match_reference(jinit):
         sess.ingest_async(3, b"")  # never checked in
 
 
-def test_unported_arguments_name_the_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        FLSession(tr, CFG, OMC, strategy="omc", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        FLClient(0, tr, CFG, OMC, lambda p, c, r: p, strategy="topk", device="cpu")
+def test_unported_arguments_name_the_roadmap(tmp_path):
+    """The population store's arguments still raise naming ROADMAP A9;
+    ``strategy=`` and ``obs=`` on the sessions no longer raise."""
+    from repro_torch.checkpoint import restore_population_state, save_population_state
+    from repro_torch.core import prng
+    from repro_torch.federated import async_engine, simulate
+    from repro_torch.models import conformer
+    from repro_torch.obs import Obs
+
+    ccfg = conformer.ConformerConfig(n_layers=1, d_model=16, n_heads=2, d_ff=32, n_classes=8,
+                                     d_in=4)
     with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        FLSession(tr, CFG, OMC, obs=object(), device="cpu")
-    sess = FLSession(tr, CFG, OMC, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        ServeSession(tr, CFG, sess.storage, obs=object())
+        async_engine.AsyncRunner(conformer, ccfg, OMC, simulate.SimConfig(),
+                                 async_engine.AsyncConfig(2), num_clients=4, data_fn=None,
+                                 init_key=prng.PRNGKey(0), population=object(), device="cpu")
+    for fn in (save_population_state, restore_population_state):
+        with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+            fn(str(tmp_path), None)
+    obs = Obs("sessions", out_dir=str(tmp_path))
+    sess = FLSession(tr, CFG, OMC, strategy="omc", obs=obs, device="cpu")
+    assert sess.strategy.name == "omc" and sess.obs is obs
+    client = FLClient(0, tr, CFG, OMC, lambda p, c, r: p, strategy="topk", obs=obs, device="cpu")
+    assert client.strategy.name == "topk" and client.strategy.error_feedback
+    assert ServeSession(tr, CFG, sess.storage, obs=obs).obs is obs
     with pytest.raises(ValueError, match="bfloat16"):
         ServeSession(tr, CFG, sess.storage, compute_dtype=torch.bfloat16)
 
@@ -362,3 +390,105 @@ def test_serve_session_from_payload_and_hot_swap_bit_transparent():
         _, gen = serve.generate(dict(tokens=torch.zeros((1, 4), dtype=torch.long)), cache, 3)
     assert gen.shape == (1, 3)
     assert serve.serve_stats()["swaps"] == 1 and serve.serve_stats()["queries"] == 1
+
+
+STRATEGIES = ["topk", "ternary", "pipeline"]
+RESID = 1e-6
+
+
+def _np(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def _update(like, seed):
+    """A fixed update drawn with numpy: 0.02 * N(0, 1) per value."""
+    rng = np.random.default_rng(seed)
+    return jax.tree_util.tree_map(
+        lambda x: (0.02 * rng.standard_normal(x.shape)).astype(np.float32), like)
+
+
+def _trained(received, r):
+    return jax.tree_util.tree_map(np.add, received, _update(received, 100 + r))
+
+
+@pytest.mark.parametrize("name", STRATEGIES)
+def test_strategy_upload_matches_reference(jinit, name):
+    jclient = JClient(0, jtr, JCFG, JOMC_, None, strategy=name)
+    client = FLClient(0, tr, CFG, OMC, None, strategy=name, device="cpu")
+    assert client.strategy.error_feedback and client.strategy.upload_only
+    received = _np(jinit)
+    for r in range(2):
+        trained = _trained(received, r)
+        jblob = jclient._strategy_upload(jax.tree_util.tree_map(jnp.asarray, received),
+                                         jax.tree_util.tree_map(jnp.asarray, trained), r)
+        blob = client._strategy_upload(interop.params_from_numpy(received, "cpu"),
+                                       interop.params_from_numpy(trained, "cpu"), r)
+        info = codecs.peek_payload(blob)
+        assert info.strategy == name and len(blob) == len(jblob)
+        if name == "ternary":  # the scale's f32 mean (C18): values within its gate
+            got, want = (dict(tree_items(decode_tree(codecs.decode_payload(b, device="cpu")[0])))
+                         for b in (blob, jblob))
+            for path, x in got.items():
+                np.testing.assert_allclose(x.numpy(), want[path].numpy(), rtol=4e-6,
+                                           atol=1e-7, err_msg=str(path))
+        else:
+            assert blob == jblob, (name, r)
+        jres = {p: np.asarray(v) for p, v in _jleaves(jclient._residual).items()}
+        res = dict(tree_items(client._residual))
+        assert sorted(res) == sorted(jres)
+        for path, x in res.items():
+            assert x.device.type == "cpu"
+            d = np.abs(x.numpy() - jres[path])
+            assert d.max() <= RESID, (name, r, path, d.max())
+        received = trained  # the next round's download is this round's model
+
+
+@pytest.mark.parametrize("name", STRATEGIES)
+def test_one_session_round_under_a_strategy_matches_reference(jinit, name):
+    js = JSession(jtr, JCFG, JOMC_, plan=JPlan(4, 2), init_params=jinit, strategy=name)
+    ps = FLSession(tr, CFG, OMC, plan=CohortPlan(4, 2),
+                   init_params=interop.params_from_numpy(jinit, device="cpu"), strategy=name,
+                   device="cpu")
+    assert ps.strategy.name == name
+    ups = {c: _update(_np(jinit), c) for c in range(4)}
+    jclients = {c: JClient(c, jtr, JCFG, JOMC_,
+                           lambda p, c, r: jax.tree_util.tree_map(jnp.add, p, ups[c]),
+                           strategy=name) for c in range(4)}
+    clients = {c: FLClient(c, tr, CFG, OMC,
+                           lambda p, c, r: tree_map(torch.add, p,
+                                                    interop.params_from_numpy(ups[c], "cpu")),
+                           strategy=name, device="cpu") for c in range(4)}
+    jt, pt = js.begin_round(), ps.begin_round()
+    assert pt.client_ids == jt.client_ids
+    assert len(pt.payload) == len(jt.payload)  # downloads stay the OMC state
+    for cid in jt.client_ids:
+        jblob, blob = jclients[cid].run_round(jt), clients[cid].run_round(pt)
+        assert codecs.peek_payload(blob).strategy == jcodecs.peek_payload(jblob).strategy
+        if name != "pipeline":  # DEFLATE's length follows the data
+            assert len(blob) == len(jblob)
+        js.ingest(cid, jblob)
+        ps.ingest(cid, blob)
+        assert clients[cid]._residual is not None
+    jm, pm = js.close_round(), ps.close_round()
+    assert {k: pm[k] for k in ("round", "reports", "invited", "down_fp32_bytes")} == \
+        {k: jm[k] for k in ("round", "reports", "invited", "down_fp32_bytes")}
+    assert_trees_within(ps.storage, js.storage)
+
+
+def test_dense_strategy_sends_the_whole_model():
+    """``omc`` as a session strategy: the report is the decoded model itself
+    (no base added), and the client keeps no residual."""
+    sess = FLSession(tr, CFG, OMC, strategy="omc", device="cpu")
+    client = FLClient(0, tr, CFG, OMC, lambda p, c, r: tree_map(lambda x: x * 0.5, p),
+                      strategy="omc", device="cpu")
+    ticket = sess.begin_round()
+    blob = client.run_round(ticket)
+    # a plain OMC frame (no tag), as the reference's client sends it
+    assert codecs.peek_payload(blob).strategy is None and client._residual is None
+    sess.ingest(0, blob)
+    row = dict(tree_items(tree_map(lambda x: x[0], sess._report_stack)))
+    sent = dict(tree_items(decode_tree(codecs.decode_payload(blob, device="cpu")[0])))
+    for path, x in row.items():
+        assert torch.equal(x, sent[path]), path
+    sess.close_round()
+    assert sess.round_index == 1 and decompress_tree(sess.storage) is not None
