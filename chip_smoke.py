@@ -114,9 +114,10 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
      the gate of phase 7.
   9. The paper tables at full width: each of ``benchmarks_torch``'s six
      scripts (Tables 1-4, Figs. 3-4) runs its ``run()`` on conformer_s' full
-     config through ``simulate.run_training``, for ``TABLE_ROUNDS`` rounds
-     (Table 2: ``TABLE2_ROUNDS``, the fewest at which its assertion that
-     S1E2M3 beats before-adaptation holds here), each table printed as the
+     config through ``simulate.run_training``, for ``TABLE_ROUNDS`` round
+     (one timed round a row after the process's warm round; Table 2:
+     ``TABLE2_ROUNDS``, the fewest at which its assertion that S1E2M3 beats
+     before-adaptation holds here), each table printed as the
      reference prints it, with the script's wall time and peak device
      memory.  Counters are zeroed around each script: ``quantize_stats`` and
      ``dequantize`` launched in every one, ``quantize`` in Table 4 and Fig. 3
@@ -208,8 +209,10 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
      ``unpack`` a leaf per payload, one more for each leaf sent as a delta
      with changed codes, as each payload's manifest says).  Then
      ``repro_torch.api.demo.main`` at its default configuration on the card
-     (``ServeSession`` after ``hot_swap`` runs ``dequant_matmul``).  Last, the
-     same protocol cut to 2 layers at full width, with a bit-exact client
+     for ``DEMO_ROUNDS`` round (the fewest at which its ``ServeSession``,
+     snapshotted before the last round, hot-swaps that round's delta and
+     serves through ``dequant_matmul``).  Last, the
+     same protocol cut to 1 layer at full width, with a bit-exact client
      update (a raw leaf times 0.9) from a model on the format's grid, on the
      card and on the CPU: cohorts, payload lengths, traffic, the async
      history and every part's launches equal, ``quantize_stats`` and
@@ -254,9 +257,10 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
      and scales, and the CPU's own ``ternarize`` is held to ROADMAP C18;
      every frame decoded on the CPU is the card's decode bit for bit.
      Training: the engine at phase 7's configuration, unfused: strategy
-     omc against None, 2 rounds each, the same bits; top-k 0.1 with error
-     feedback 2 rounds, ternary with it 1 round, the pipeline 1 round
-     without the ledger; each with its s a round, peak memory,
+     omc against None, 1 round each, the same bits; top-k 0.1 with error
+     feedback 1 round, ternary with it 1 round, the pipeline 1 round
+     without the ledger (None's and top-k's rounds are also phase 19's
+     references); each with its s a round, peak memory,
      ``ef_bytes`` and residual norm, its launches equal to the same run's
      on the CPU at the smoke config, and its ledger equal to the
      reference's rule restated.  Card against CPU at 2 layers (batches of
@@ -289,10 +293,37 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
      staleness list per flush.  Every handle is flushed to JSONL and
      Perfetto files (their bytes printed) and ``python -m
      repro_torch.obs.report`` renders the unfused engine's, exit 0.
+ 19. The sharded population runtime at full width (``repro_torch.scale``),
+     phase 7's model, task and configuration.  (a) ``run_training_sharded``
+     at cohort 8 of 16, 2 shards, capacity 3, one round unfused and one
+     fused, against the engine's round from the same key (phase 17's
+     strategy-None round and phase 7's warm round): the same invited and
+     alive clients (the store's counters), ledgers to the byte, trees within
+     6e-3 max and 1e-4 / 1e-3 mean (the reference's gates), no
+     ``fused_aggregate`` (the root is unfused, as in the reference).  (b)
+     One round each at populations 1,000 and 100,000, cohort 16, capacity 4,
+     4 shards, through one stream and one root function, (a)'s rounds its
+     warm-up: the ``StreamLedger`` bound the same, ``max_memory_allocated``
+     within 1.5x; s a round, updates/s, the bound, the peak and the host
+     counter bytes printed.  (c) Top-k 0.1 with error feedback at population
+     16, cohort 8, capacity 4, under deterministic algorithms: an f32
+     ``PopulationStore`` against phase 17's dense-EF engine round within
+     1e-5 max and 1e-6 mean; a packed S1E3M7 store, its words for one chunk
+     of its three smallest leaves bit for bit the plain versions' encode of the
+     same rows on the CPU, ``(s, b)`` within 1e-5 relative, its decode the
+     plain decode's bits, at rest under half of f32; peaks printed beside the
+     dense engine's.  (d) That packed store through
+     ``save_population_state`` into a fresh store, bit-equal; a
+     population-backed ``AsyncRunner`` at 2 layers (4 clients, buffer 2, one
+     flush) with the dict-backed run's counters, history and storage, its
+     checkpoint stamped with the layout.  (e) ``run_serve_under_swap`` on the
+     demo's transformer: 2 payloads, 4 queries each, 2 swaps, the stall
+     under 10x, ``dequant_matmul`` launched.  Counters are zeroed around each
+     part's runs (not its comparisons): B1, B2, B4 and B6 launched.
 
 Each phase's wall seconds are printed on a line of their own.  It then
 prints one JSON line describing each kernel (``launches_by_path`` has the
-main paths of phases 3, 5, 7, 9, 11, 13, 15, 16, 17 and 18) and, last, the line
+main paths of phases 3, 5, 7, 9, 11, 13, 15, 16, 17, 18 and 19) and, last, the line
 ``{"ok": true, "device": {...}}``.  f32 matmuls run in full f32: TF32 is
 switched off for matmuls and cuDNN.  Exits non-zero without a CUDA device.
 """
@@ -321,7 +352,7 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from repro_torch import compress  # noqa: E402
+from repro_torch import compress, scale  # noqa: E402
 from repro_torch.api import codecs, demo, session  # noqa: E402
 from repro_torch.api.session import FLClient, FLSession, ServeSession  # noqa: E402
 from repro_torch.configs import conformer_s, qwen2_5_3b, recurrentgemma_2b  # noqa: E402
@@ -409,7 +440,7 @@ TABLE_FMTS = ("S1E5M10", "S1E3M9", "S1E4M8", "S1E5M7")
 TABLE_SCRIPTS = ("table1_iid", "table2_adaptation", "table3_noniid", "table4_ablation",
                  "fig3_pvt_stability", "fig4_ppq_vs_apq")
 PVT_OFF_SCRIPTS = ("table4_ablation", "fig3_pvt_stability")  # rows encoding by `quantize`
-TABLE_ROUNDS = 2  # BENCH_ROUNDS of phase 9's scripts
+TABLE_ROUNDS = 1  # BENCH_ROUNDS of phase 9's scripts (a row times its one round after the warm one)
 TABLE2_ROUNDS = 1  # the fewest at which Table 2's S1E2M3 beats before-adaptation here
 DRIVER_ROUNDS, DRIVER_CKPT_EVERY = 6, 3  # phase 11: the driver's run and its checkpoints
 DRIVER_DIR = ROOT / "build" / "train_driver"
@@ -418,6 +449,12 @@ ASYNC_SIM = simulate.SimConfig(local_steps=1, client_lr=0.1)
 ASYNC_FLUSHES = 3  # phase 13's straggler run
 ASYNC_STALENESS = np.asarray([0, 0, 1, 1, 2, 3, 5, 8], np.float32)  # phase 2's K = 8 buffer
 SESSION_PLAN = CohortPlan(num_clients=8, cohort_size=4)  # phase 15
+# phase 15's card against CPU: the protocol at one layer (at two, the CPU's
+# plain codec on every payload took most of the phase)
+SESSION_CUT_LAYERS = 1
+# phase 15's demo: one round still snapshots a ServeSession and hot-swaps the
+# round's delta into it, which then serves through dequant_matmul
+DEMO_ROUNDS = 1
 SESSION_ROUNDS, SESSION_BUFFER, SESSION_DECAY = 2, 4, 0.5
 SESSION_STEPS, SESSION_LR = 2, 0.05  # each client's local SGD
 NONIID_ROUNDS = 2  # phase 16's Dirichlet run
@@ -427,6 +464,19 @@ OBS_DIR = ROOT / "build" / "obs"  # phase 18's JSONL and Perfetto files
 OBS_ROUNDS = 2  # phase 18: engine rounds a run, obs off and on
 OBS_SESSION_STRATEGY = dict(name="topk", density=0.1, value_fmt=FMT)  # phase 18's uploads
 OBS_ASYNC_CLIENTS, OBS_ASYNC_BUFFER = 4, 2  # phase 18's async run (8 and 4 took 4.9 s)
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """``torch.use_deterministic_algorithms(True)`` inside (phases 13, 17, 18
+    and 19's part (c) compare runs bit for bit); the previous setting after."""
+    was = torch.are_deterministic_algorithms_enabled()
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was)
 
 
 def require(cond: bool, msg: str) -> None:
@@ -1264,7 +1314,9 @@ def phase_train() -> dict:
                                               rounds, init_params=params, fused_agg=fused)
 
     t0 = time.perf_counter()
-    train(1, True)  # warm round: allocator, cuBLAS handles, lazy kernel loading
+    # warm round: allocator, cuBLAS handles, lazy kernel loading; phase 19
+    # holds its sharded fused round against it
+    warm = train(1, True)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     runs = {}
@@ -1324,7 +1376,7 @@ def phase_train() -> dict:
     for c in (runs[True]["counts"], runs[False]["counts"], quant["counts"]):
         for k, v in c.items():
             counts[k] = counts.get(k, 0) + v
-    return dict(n_params=n_params, warm_s=warm_s, gap=gap, quant=quant, counts=counts,
+    return dict(n_params=n_params, warm_s=warm_s, gap=gap, quant=quant, counts=counts, warm=warm,
                 runs={("fused" if f else "unfused"): {k: v for k, v in r.items() if k != "storage"}
                       for f, r in runs.items()})
 
@@ -1754,13 +1806,8 @@ def _async_save_point(runner) -> bool:
 def phase_async() -> dict:
     """The async runtime at full width, under deterministic algorithms;
     launch counters zeroed around each part."""
-    deterministic = torch.are_deterministic_algorithms_enabled()
-    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
-    torch.use_deterministic_algorithms(True)
-    try:
+    with deterministic_algorithms():
         return _phase_async()
-    finally:
-        torch.use_deterministic_algorithms(deterministic)
 
 
 def _phase_async() -> dict:
@@ -2157,7 +2204,7 @@ def _sum_counts(parts) -> dict:
 
 def phase_sessions() -> dict:
     """The FL sessions at full width on the card, the demo, then the same
-    protocol at 2 layers, card against CPU."""
+    protocol at 1 layer, card against CPU."""
     cfg = TRAIN_CFG
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2190,19 +2237,20 @@ def phase_sessions() -> dict:
     # after hot_swap runs dequant_matmul
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    require(demo.main(["--device", "cuda", "--quiet"]) == 0, "the demo failed")
+    require(demo.main(["--device", "cuda", "--quiet", "--rounds", str(DEMO_ROUNDS)]) == 0,
+            "the demo failed")
     torch.cuda.synchronize()
     demo_counts = ops.launch_counts()
     require_launches(demo_counts, "demo", quantize_stats=None, dequantize=None, pack=None,
                      unpack=None, dequant_matmul=None)
-    print(f"  demo (default config, 8 rounds): {time.perf_counter() - t0:.1f} s, launches "
+    print(f"  demo (default config, {DEMO_ROUNDS} round): {time.perf_counter() - t0:.1f} s, launches "
           f"{demo_counts}")
     main_s = time.perf_counter() - t_phase
 
-    # card against CPU at 2 layers: the same protocol with a bit-exact client
+    # card against CPU at SESSION_CUT_LAYERS: the same protocol, a bit-exact client
     # update, from a model already on the format's grid (the codes then stay
     # put when the storage is decoded and re-compressed)
-    cut = dataclasses.replace(cfg, n_layers=2)
+    cut = dataclasses.replace(cfg, n_layers=SESSION_CUT_LAYERS)
     t0 = time.perf_counter()
     grid = decompress_tree(compress_params(conformer.init(prng.PRNGKey(4), cut, "cuda"),
                                            conformer.param_specs(cut), OMCConfig.parse(FMT.name)))
@@ -2228,7 +2276,7 @@ def phase_sessions() -> dict:
         require(same == card["n_comp"] or (gaps[which][1][0] <= TREE_MAX
                                              and gaps[which][1][1] <= TREE_MEAN),
                 f"{which}: card and CPU storages differ {gaps[which]}")
-    print(f"  card against CPU, 2 layers at full width, bit-exact update: cohorts "
+    print(f"  card against CPU, {SESSION_CUT_LAYERS} layer at full width, bit-exact update: cohorts "
           f"{card['ids']}, payload lengths {card['lengths']} and {card['async_lengths']}, traffic "
           f"and async history equal; codes equal in {gaps['session'][0]} / "
           f"{gaps['async_session'][0]} of {card['n_comp']} leaves (sync / async), trees max |d| "
@@ -2756,20 +2804,25 @@ def strategies_train(params, specs, omc) -> dict:
                           + (f", down {h['down_bytes']:,} up {h['up_bytes']:,}" if wire else "")
                           for h in hist))
 
-    train("none", None, 2)
-    train("omc", compress.get_strategy("omc"), 2)
+    train("none", None, 1)
+    train("omc", compress.get_strategy("omc"), 1)
     require(runs["none"]["history"] == runs["omc"]["history"]
             and trees_bit_equal(runs["none"]["storage"], runs["omc"]["storage"]),
             "strategy omc and strategy None trained different bits")
     print("  strategy omc against None: storage, history and ledger the same bits")
+    # phase 19 holds its sharded rounds against the engine's unfused round
+    none = (runs["none"]["storage"], runs["none"]["history"])
     for name in ("none", "omc"):
         runs[name].pop("storage")
-    train("topk-0.1+ef", compress.get_strategy("topk", density=0.1), 2)
+    train("topk-0.1+ef", compress.get_strategy("topk", density=0.1), 1)
+    # phase 19 holds its store-backed EF round against this one
+    topk = {k: runs["topk-0.1+ef"][k] for k in ("storage", "history")}
+    topk["peak"] = runs["topk-0.1+ef"]["peak_gb"] * 1e9
     train("ternary+ef", compress.get_strategy("ternary"), 1)
     train("pipeline+ef", compress.get_strategy("pipeline"), 1, wire=False)
     for r in runs.values():
         r.pop("storage", None)
-    return dict(runs=runs, counts=counts)
+    return dict(runs=runs, counts=counts, topk=topk, none=none)
 
 
 def strategies_card_vs_cpu() -> dict:
@@ -2881,10 +2934,7 @@ def phase_strategies() -> dict:
     the strategies, and the loop and async runtime card against CPU; under
     deterministic algorithms (strategy omc against None is compared bit for
     bit)."""
-    deterministic = torch.are_deterministic_algorithms_enabled()
-    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
-    torch.use_deterministic_algorithms(True)
-    try:
+    with deterministic_algorithms():
         cfg, omc = TRAIN_CFG, OMCConfig.parse(FMT.name)
         params = conformer.init(prng.PRNGKey(0), cfg, "cuda")
         specs = conformer.param_specs(cfg)
@@ -2898,8 +2948,6 @@ def phase_strategies() -> dict:
         cross = strategies_card_vs_cpu()
         print(f"  parts: wire {t1 - t0:.1f} s, engine {t2 - t1:.1f} s, card against CPU "
               f"{time.perf_counter() - t2:.1f} s")
-    finally:
-        torch.use_deterministic_algorithms(deterministic)
     counts = dict(wire["counts"])
     for k, v in trained["counts"].items():
         counts[k] = counts.get(k, 0) + v
@@ -3079,13 +3127,8 @@ def phase_obs(train_peaks=None) -> dict:
     strategy uploads, under deterministic algorithms.  ``train_peaks``:
     phase 7's peak device bytes by run (``fused``, ``unfused``), printed
     beside phase 18's when given."""
-    deterministic = torch.are_deterministic_algorithms_enabled()
-    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
-    torch.use_deterministic_algorithms(True)
-    try:
+    with deterministic_algorithms():
         return _phase_obs(train_peaks)
-    finally:
-        torch.use_deterministic_algorithms(deterministic)
 
 
 def _phase_obs(train_peaks) -> dict:
@@ -3121,6 +3164,324 @@ def _phase_obs(train_peaks) -> dict:
     return dict(counts=_plus(*(p["counts"] for p in parts.values())), times=times,
                 sizes=sizes, engine={k: {kk: v for kk, v in parts[k].items() if kk != "obs"}
                                      for k in ("engine unfused", "engine fused")})
+
+
+# ---------------------------------------------------------------------------
+# 19. the population runtime at full width
+# ---------------------------------------------------------------------------
+
+SCALE_DIR = ROOT / "build" / "scale"  # the packed store's and the async runner's checkpoints
+SCALE_UNFUSED_MEAN = 1e-4  # the reference's sharded-against-engine gates (tests/test_scale.py)
+SCALE_EF_MAX, SCALE_EF_MEAN = 1e-5, 1e-6  # store-backed EF against the engine's dense EF
+SCALE_POPULATIONS = (1_000, 100_000)  # part (b)'s populations: cohort 16, capacity 4, 4 shards
+SCALE_PEAK_RATIO = 1.5  # the reference benchmark's acceptance on the measured peaks
+SCALE_STALL = 10.0  # the reference benchmark's swap-stall limit
+SCALE_CHECK_LEAVES = CHECK_LEAVES[1:]  # (c)'s codec check: the three smallest selected leaves
+
+
+def scale_vs_engine(params, omc, engine_fused=None, engine_unfused=None) -> dict:
+    """(a) One sharded round unfused and one fused (cohort 8 of 16, 2 shards,
+    capacity 3) against the engine's round from the same key: the same
+    invited and alive clients, ledgers to the byte, trees within the
+    reference's gates.  ``engine_fused`` / ``engine_unfused``: phase 7's warm
+    round and phase 17's strategy-None round (the engine's rounds from this
+    key and init), ``(storage, history)``; each is run here when not given."""
+    cfg, layout = TRAIN_CFG, scale.ShardLayout(16, 2)
+    data_fn, key = async_data(TRAIN_CFG, 16), prng.PRNGKey(0)
+    spec = engine.CohortSpec(STRAT_PLAN)
+    ids = engine.sample_tiered_cohort(prng.fold_in(key, 0xC047), spec, 0)[0].numpy()
+    alive = cohort.survival_mask(prng.fold_in(key, 0xC047), STRAT_PLAN, 0).numpy()
+    out, counts = {}, []
+    for fused in (False, True):
+        store = scale.PopulationStore(layout)  # counters only: who was invited, who uploaded
+        t0 = time.perf_counter()
+        (storage, hist, ledger_), got = _counted(
+            scale.run_training_sharded, conformer, cfg, omc, STRAT_SIM, STRAT_PLAN, layout,
+            data_fn, key, 1, capacity=3, fused_agg=fused, store=store, init_params=params)
+        wall = time.perf_counter() - t0
+        require_launches(got, f"sharded fused={fused}", quantize_stats=None, dequantize=None,
+                         fused_aggregate=0)
+        counts.append(got)
+        if fused and engine_fused is None:
+            engine_fused = engine.run_training_vectorized(conformer, cfg, omc, STRAT_SIM, spec,
+                                                          data_fn, key, 1, init_params=params,
+                                                          fused_agg=True)
+        if not fused and engine_unfused is None:
+            engine_unfused = engine.run_training_vectorized(conformer, cfg, omc, STRAT_SIM, spec,
+                                                            data_fn, key, 1, init_params=params)
+        eng_storage, eng_hist = engine_fused if fused else engine_unfused
+        require(np.array_equal(np.flatnonzero(store.round_counters), np.sort(ids))
+                and np.array_equal(np.flatnonzero(store.event_counters), np.sort(ids[alive])),
+                f"fused={fused}: the sharded round invited {np.flatnonzero(store.round_counters)} "
+                f"with {np.flatnonzero(store.event_counters)} alive; the engine {ids}, {alive}")
+        require(ledger(hist) == ledger(eng_hist), f"fused={fused}: ledgers {hist} {eng_hist}")
+        require(abs(hist[0]["loss"] - eng_hist[0]["loss"]) < 1e-3, f"losses {hist} {eng_hist}")
+        gap = tree_gap(storage, eng_storage)
+        mean_gate = TREE_MEAN if fused else SCALE_UNFUSED_MEAN
+        require(gap[0] <= TREE_MAX and gap[1] <= mean_gate,
+                f"fused={fused}: sharded against engine {gap}")
+        out["fused" if fused else "unfused"] = dict(gap=gap, wall=wall, history=hist,
+                                                   ledger=ledger_.snapshot(), counts=got)
+        print(f"  (a) sharded {'fused  ' if fused else 'unfused'} round: {wall:.2f} s, "
+              f"{hist[0]['chunks']} chunks over {hist[0]['shards']} shards at capacity 3; "
+              f"invited and alive clients and ledger the engine's (down {hist[0]['down_bytes']:,}"
+              f" up {hist[0]['up_bytes']:,}); trees max |d| {gap[0]:.3g}, mean |d| {gap[1]:.3g}"
+              f" (gates {TREE_MAX:g} / {mean_gate:g}); launches {got}")
+        del storage, eng_storage
+    del engine_fused, engine_unfused
+    return dict(runs=out, counts=_plus(*counts))
+
+
+def scale_memory(params, omc) -> dict:
+    """(b) One timed round at each of SCALE_POPULATIONS (cohort 16, capacity
+    4, 4 shards) through one stream and one root function: the StreamLedger
+    bound the same, the measured peaks within 1.5x.  Part (a)'s two sharded
+    rounds are its shared warm-up: the port compiles nothing per stream
+    function, so a streamed round of the same model warms what a first round
+    pays for (the allocator, cuBLAS's handles, lazily loaded kernels)."""
+    cfg, specs = TRAIN_CFG, conformer.param_specs(TRAIN_CFG)
+    data_fn, key = async_data(TRAIN_CFG, max(SCALE_POPULATIONS)), prng.PRNGKey(0)
+    table = accounting.build_wire_table(params, specs, omc)
+    storage = compress_params(params, specs, omc)
+    stream_fn = scale.make_stream_fn(conformer, cfg, specs, omc, STRAT_SIM, data_fn, 4)
+    root_fn = scale.make_root_fn(specs, omc, STRAT_SIM)
+
+    def one_round(population, r, storage, ledger_=None):
+        plan = CohortPlan(num_clients=population, cohort_size=16, failure_rate=0.25)
+        layout = scale.ShardLayout(population, 4)
+        store = scale.PopulationStore(layout)
+        new, m = scale.run_round_sharded(conformer, cfg, specs, omc, STRAT_SIM, storage, data_fn,
+                                         plan, layout, r, key, capacity=4, stream_fn=stream_fn,
+                                         root_fn=root_fn, store=store, wire_table=table,
+                                         ledger=ledger_)
+        return new, m, store
+
+    rows, counts = [], []
+    for population in SCALE_POPULATIONS:
+        ledger_ = accounting.StreamLedger(table, omc, 4)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        (new, m, store), got = _counted(one_round, population, 0, storage, ledger_)
+        wall = time.perf_counter() - t0
+        counts.append(got)
+        rows.append(dict(population=population, round_s=wall,
+                         updates_per_s=(m["cohort"] + m["dropped"]) / wall, chunks=m["chunks"],
+                         bound=ledger_.peak_bound_bytes(),
+                         peak=torch.cuda.max_memory_allocated(),
+                         counter_bytes=store.bytes_report()["counter_bytes"], loss=m["loss"]))
+        require(math.isfinite(m["loss"]), f"population {population}: loss {m}")
+        del new
+    require(len({r["bound"] for r in rows}) == 1, f"the bound moved with the population: {rows}")
+    peaks = [r["peak"] for r in rows]
+    require(max(peaks) <= SCALE_PEAK_RATIO * min(peaks), f"peaks grew with the population: {rows}")
+    print("  (b) bounded memory, cohort 16, capacity 4, 4 shards (warmed by (a)): " + "; ".join(
+              f"population {r['population']:,}: {r['round_s']:.2f} s a round, "
+              f"{r['updates_per_s']:.2f} updates/s, {r['chunks']} chunks, bound "
+              f"{r['bound']:,} B, peak {r['peak']:,} B (max_memory_allocated), host counters "
+              f"{r['counter_bytes']:,} B" for r in rows)
+          + f"; peaks {max(peaks) / min(peaks):.3f}x apart")
+    return dict(rows=rows, counts=_plus(*counts))
+
+
+def scale_ef(params, omc, engine_topk=None) -> dict:
+    """(c) Top-k 0.1 with error feedback at population 16, cohort 8,
+    capacity 4, one round: an f32 store against the engine's dense EF
+    (``engine_topk``: phase 17's round, run here when not given), then a
+    packed S1E3M7 store, its words for one chunk against the CPU's plain
+    encode of the same rows, its decode against the CPU's plain decode."""
+    cfg, specs, layout = TRAIN_CFG, conformer.param_specs(TRAIN_CFG), scale.ShardLayout(16, 2)
+    data_fn, key = async_data(TRAIN_CFG, 16), prng.PRNGKey(0)
+    strategy = compress.get_strategy("topk", density=0.1)
+    if engine_topk is None:
+        ef = compress.feedback.init_ef_state(params, specs, omc, 16)
+        torch.cuda.reset_peak_memory_stats()
+        storage, hist = engine.run_training_vectorized(
+            conformer, cfg, omc, STRAT_SIM, engine.CohortSpec(STRAT_PLAN), data_fn, key, 1,
+            init_params=params, wire=False, strategy=strategy, ef=ef)
+        engine_topk = dict(storage=storage, history=hist, peak=torch.cuda.max_memory_allocated())
+        del ef
+    runs, counts = {}, []
+    for fmt in (None, FMT):
+        name = fmt.name if fmt else "f32"
+        store = scale.PopulationStore(layout)
+        store.init_ef(params, specs, omc, ef_fmt=fmt)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        (storage, hist, _), got = _counted(
+            scale.run_training_sharded, conformer, cfg, omc, STRAT_SIM, STRAT_PLAN, layout,
+            data_fn, key, 1, capacity=4, strategy=strategy, store=store, wire=False,
+            init_params=params)
+        wall = time.perf_counter() - t0
+        counts.append(got)
+        require_launches(got, f"store {name}", quantize_stats=None, dequantize=None,
+                         **({"pack": None, "unpack": None} if fmt else {}))
+        runs[name] = dict(store=store, storage=storage, history=hist, wall=wall, counts=got,
+                          peak=torch.cuda.max_memory_allocated(), report=store.bytes_report())
+    gap = tree_gap(runs["f32"]["storage"], engine_topk["storage"])
+    require(gap[0] <= SCALE_EF_MAX and gap[1] <= SCALE_EF_MEAN,
+            f"f32 store against the engine's dense EF: {gap}")
+    require(abs(runs["f32"]["history"][0]["loss"] - engine_topk["history"][0]["loss"]) < 1e-3,
+            f"losses {runs['f32']['history']} {engine_topk['history']}")
+    packed, raw = runs[FMT.name]["store"], runs["f32"]["store"]
+    rep = runs[FMT.name]["report"]
+    require(rep["ef_at_rest_bytes"] < 0.5 * rep["ef_fp32_bytes"], f"at rest {rep}")
+    # one chunk: the first alive clients of the round, at most 4
+    moved = np.flatnonzero(packed.event_counters)[:4]
+    require(moved.size > 0, "no client uploaded")
+    checked = {}
+    card_rows = packed.gather_ef(moved)  # a comparison: B4 unpack and B2, not counted
+    for name in SCALE_CHECK_LEAVES:
+        var, rvar = packed._ef[name], raw._ef[name]
+        want_words, want_s, want_b = scale.store.encode_rows(torch.from_numpy(rvar.raw[moved]),
+                                                             FMT)
+        require(np.array_equal(var.words[moved], want_words.numpy()),
+                f"{name}: the store's words differ from the plain encode of the same rows")
+        s_gap = np.abs(var.s[moved] - want_s.numpy()) / np.abs(want_s.numpy())
+        # b relative to the row's largest |value| (a drained row, all zeros,
+        # must give b = 0 exactly)
+        rows_max = np.abs(rvar.raw[moved]).reshape(moved.size, -1).max(1)
+        b_gap = np.abs(var.b[moved] - want_b.numpy()) / np.where(rows_max > 0, rows_max, np.inf)
+        require(bool(np.all((rows_max > 0) | (var.b[moved] == 0))), f"{name}: b of a zero row")
+        require(s_gap.max() <= 1e-5 and b_gap.max() <= 1e-5, f"{name}: (s, b) {s_gap} {b_gap}")
+        plain = scale.store.decode_rows(torch.from_numpy(var.words[moved]),
+                                        torch.from_numpy(var.s[moved]),
+                                        torch.from_numpy(var.b[moved]), FMT, var.shape)
+        require(torch.equal(card_rows[name].cpu(), plain),
+                f"{name}: the card's decode differs from the plain decode")
+        checked[name] = (var.n, float(s_gap.max()), float(b_gap.max()))
+    del card_rows
+    eng_peak = engine_topk["peak"]
+    print(f"  (c) top-k 0.1 + EF, population 16, cohort 8, capacity 4: f32 store "
+          f"{runs['f32']['wall']:.2f} s, trees against the engine's dense EF max |d| "
+          f"{gap[0]:.3g}, mean |d| {gap[1]:.3g} (gates {SCALE_EF_MAX:g} / {SCALE_EF_MEAN:g}); "
+          f"packed {FMT.name} store {runs[FMT.name]['wall']:.2f} s, at rest "
+          f"{rep['ef_at_rest_bytes']:,} B against f32 {rep['ef_fp32_bytes']:,} B "
+          f"({rep['ef_at_rest_bytes'] / rep['ef_fp32_bytes']:.4f}); clients {moved.tolist()}: "
+          f"words the plain encode's bit for bit, decode the plain decode's, (s, b) within 1e-5 "
+          f"relative on {checked}; peak f32 store {runs['f32']['peak'] / 1e9:.2f} GB, packed "
+          f"{runs[FMT.name]['peak'] / 1e9:.2f} GB, the engine's dense EF "
+          f"{eng_peak / 1e9:.2f} GB (its [16, ...] residuals on the card: "
+          f"{4 * 16 * sum(v.n for v in raw._ef.values()) / 1e9:.2f} GB); launches "
+          f"{runs[FMT.name]['counts']}")
+    return dict(packed=packed, counts=_plus(*counts), gap=gap, report=rep,
+                walls={k: r["wall"] for k, r in runs.items()},
+                peaks={k: r["peak"] for k, r in runs.items()}, engine_peak=eng_peak)
+
+
+def scale_checkpoints(params, omc, packed) -> dict:
+    """(d) The packed store through ``save_population_state`` into a fresh
+    store, bit-equal; a population-backed ``AsyncRunner`` at 2 layers (4
+    clients, buffer 2, one flush) with the dict-backed run's counters, its
+    checkpoint stamped with the layout."""
+    shutil.rmtree(SCALE_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    path = ck.save_population_state(str(SCALE_DIR / "store"), 1, packed)
+    save_s = time.perf_counter() - t0
+    fresh = scale.PopulationStore(packed.layout)
+    fresh.init_ef(params, conformer.param_specs(TRAIN_CFG), omc, ef_fmt=FMT)
+    t0 = time.perf_counter()
+    ck.restore_population_state(path, fresh)
+    restore_s = time.perf_counter() - t0
+    a, b = packed.state_tree(), fresh.state_tree()
+    require(all(np.array_equal(a[k], b[k]) for k in ("round_counters", "event_counters"))
+            and all(np.array_equal(a["ef"][n][f], b["ef"][n][f]) for n in a["ef"]
+                    for f in ("words", "s", "b")), "the restored store differs")
+    disk = sum(p.stat().st_size for p in Path(path).iterdir())
+
+    cut = dataclasses.replace(TRAIN_CFG, n_layers=2)
+    small = conformer.init(prng.PRNGKey(0), cut, "cuda")
+    acfg, trace = straggler(4, 2)
+    layout = scale.ShardLayout(4, 2)
+    runs, counts = {}, {}
+    for backed in (False, True):
+        store = scale.PopulationStore(layout) if backed else None
+        runner = async_engine.AsyncRunner(conformer, cut, omc, ASYNC_SIM, acfg, trace,
+                                          num_clients=4, data_fn=async_data(cut, 4),
+                                          init_params=small, population=store)
+        _, counts[backed] = _counted(runner.run_until, flushes=1)
+        runs[backed] = runner
+    plain, pop = runs[False], runs[True]
+    require(isinstance(pop.round_counters, scale.ArrayCounters)
+            and dict(pop.round_counters.items()) == plain.round_counters
+            and dict(pop.event_counters.items()) == plain.event_counters
+            and pop.history == plain.history and trees_bit_equal(pop.storage, plain.storage),
+            f"population-backed async: counters {dict(pop.round_counters.items())} "
+            f"{plain.round_counters}, history {pop.history} {plain.history}")
+    apath = ck.save_async_state(str(SCALE_DIR / "async"), pop, keep=1)
+    with open(Path(apath) / "manifest.json") as f:
+        extra = json.load(f)["extra"]
+    require(extra["population_layout"] == layout.describe() and extra["event_counters"] is None,
+            f"async checkpoint stamp {extra['population_layout']}")
+    print(f"  (d) packed store checkpoint {disk:,} B on disk, save {save_s:.2f} s, restore "
+          f"{restore_s:.2f} s, restored bit-equal; population-backed async runner (2 layers, 4 "
+          f"clients, buffer 2, 1 flush): counters, history and storage the dict-backed run's, "
+          f"checkpoint stamped {extra['population_layout']}; launches {counts[True]}")
+    return dict(counts=counts[True], disk=disk, save_s=save_s, restore_s=restore_s)
+
+
+def scale_serve(omc) -> dict:
+    """(e) ``run_serve_under_swap`` on the demo's transformer (4 layers,
+    d 128, vocab 512): 2 payloads, 4 queries each; 2 swaps, the stall under
+    10x, ``dequant_matmul`` launched."""
+    cfg = transformer.TransformerConfig(n_layers=4, d_model=128, n_heads=8, n_kv_heads=4,
+                                        d_ff=256, vocab=512)
+    specs = transformer.param_specs(cfg)
+    key = prng.PRNGKey(1)
+    params = transformer.init(key, cfg, "cuda")
+    sess = ServeSession(transformer, cfg, compress_params(params, specs, omc))
+    payloads = []
+    for i in range(2):
+        k = prng.fold_in(key, i + 1)
+        payloads.append(codecs.encode_payload(compress_params(
+            tree_map(lambda p: p + 0.01 * prng.normal(k, p.shape, p.device), params), specs, omc),
+            round_index=i + 1))
+    stats, counts = _counted(
+        scale.run_serve_under_swap, sess, payloads,
+        make_query=lambda i: scale.synthetic_token_batch(1, 4, cfg.vocab, seed=i),
+        queries_per_swap=4, decode_steps=4)
+    require_launches(counts, "serve under swap", dequant_matmul=None, unpack=None,
+                     dequantize=None)
+    require(stats["swaps"] == 2 and stats["swap_stall_ratio"] < SCALE_STALL,
+            f"serve under swap: {stats}")
+    print(f"  (e) serve under swap (the demo's transformer): {stats}; launches {counts}")
+    return dict(stats=stats, counts=counts)
+
+
+def phase_scale(engine_fused=None, engine_unfused=None, engine_topk=None) -> dict:
+    """The population runtime at full width (phase 7's configuration).
+    ``engine_fused``: phase 7's warm round; ``engine_unfused``: phase 17's
+    strategy-None round (both ``(storage, history)``); ``engine_topk``: phase
+    17's top-k + EF round ``{storage, history, peak}``; each is run here when
+    not given.  Part (c) runs under deterministic algorithms, as phase 17
+    does: its f32 store must give the engine's residual rows."""
+    omc = OMCConfig.parse(FMT.name)
+    params = conformer.init(prng.PRNGKey(0), TRAIN_CFG, "cuda")
+
+    def store_backed_ef():
+        with deterministic_algorithms():
+            return scale_ef(params, omc, engine_topk)
+
+    times, parts = {}, {}
+    steps = (("(a) sharded against the engine",
+              lambda: scale_vs_engine(params, omc, engine_fused, engine_unfused)),
+             ("(b) bounded memory", lambda: scale_memory(params, omc)),
+             ("(c) store-backed EF", store_backed_ef),
+             ("(d) checkpoints and async", lambda: scale_checkpoints(
+                 params, omc, parts["(c) store-backed EF"].pop("packed"))),
+             ("(e) serve under swap", lambda: scale_serve(omc)))
+    for name, fn in steps:
+        t0 = time.perf_counter()
+        parts[name] = fn()
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    counts = _plus(*(p["counts"] for p in parts.values()))
+    require_launches(counts, "scale", quantize_stats=None, dequantize=None, pack=None,
+                     unpack=None, dequant_matmul=None)
+    print("  parts: " + ", ".join(f"{k} {v:.1f} s" for k, v in times.items()))
+    return dict(counts=counts, times=times, parts=parts)
 
 
 def min_ms(fn, reps: int = 3) -> float:
@@ -3204,6 +3565,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     telemetry = timed(18, "telemetry and strategy sessions at full width", phase_obs,
                       {k: r["max_memory_allocated"] for k, r in trained["runs"].items()})
+    torch.cuda.empty_cache()
+    scaled = timed(19, "population runtime at full width", phase_scale, trained.pop("warm"),
+                   strategies["train"].pop("none"), strategies["train"].pop("topk"))
     print(f"all phases: {time.perf_counter() - t0:.1f} s")
     print(json.dumps(kernel_line(kernels, {"serve": served["report"]["launch_counts"],
                                            "serve_griffin": served_g["report"]["launch_counts"],
@@ -3214,7 +3578,8 @@ def main() -> None:
                                            "sessions": sessions["counts"],
                                            "noniid": noniid["counts"],
                                            "strategies": strategies["counts"],
-                                           "obs": telemetry["counts"]})))
+                                           "obs": telemetry["counts"],
+                                           "scale": scaled["counts"]})))
     print(json.dumps(dict(ok=True, device=dict(platform="gpu", kind=torch.cuda.get_device_name(0),
                                                count=torch.cuda.device_count()))))
 

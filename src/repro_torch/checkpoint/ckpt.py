@@ -29,7 +29,9 @@ The async runtime's snapshot (:func:`save_async_state` /
 :func:`restore_async_state`) rides on the same layout: its arrays are one
 tree (``storage``, ``buffer``, ``versions``, ``trained``) and its event
 loop's scalars the manifest's ``extra``, in the reference's keys.  The
-sharded population's checkpoints wait for ``scale.store`` (ROADMAP A9).
+sharded population's store (:func:`save_population_state` /
+:func:`restore_population_state`) rides on it too: its counters and rows are
+numpy arrays on the host, and restore hands them back as such.
 """
 
 from __future__ import annotations
@@ -239,6 +241,11 @@ def _async_state_tree(runner) -> Dict[str, Any]:
     )
     if runner.ef is not None:
         tree["ef"] = dict(runner.ef)
+    if runner.population is not None:
+        # population-backed counters ride in the npz as arrays: a large
+        # population's counters as manifest JSON would be megabytes (§14)
+        tree["counters"] = dict(round=runner.population.round_counters,
+                                event=runner.population.event_counters)
     return tree
 
 
@@ -249,8 +256,10 @@ def save_async_state(ckpt_dir: str, runner, keep: int = 3) -> str:
     clock, version, pending tickets, trace counters, history, wire ledger)
     travel in the manifest's ``extra``, in the reference's keys, which is all
     a deterministic resume needs (traces are functions of their counters).
-    The step is ``events_processed``.
+    The step is ``events_processed``.  A population-backed runner's counters
+    travel as arrays in the npz and the manifest stamps its layout.
     """
+    pop = runner.population
     extra = dict(
         kind="async_runner",
         version=int(runner.version),
@@ -264,9 +273,11 @@ def save_async_state(ckpt_dir: str, runner, keep: int = 3) -> str:
                  for c, p in runner.pending.items()],
         idle=[[int(c), float(t)] for c, t in runner.idle.items()],
         version_keys=sorted(int(v) for v in runner.version_storages),
-        event_counters={str(c): int(k) for c, k in runner.event_counters.items()},
-        round_counters={str(c): int(k) for c, k in runner.round_counters.items()},
-        population_layout=None,
+        event_counters=(None if pop is not None else
+                        {str(c): int(k) for c, k in runner.event_counters.items()}),
+        round_counters=(None if pop is not None else
+                        {str(c): int(k) for c, k in runner.round_counters.items()}),
+        population_layout=pop.layout.describe() if pop is not None else None,
         trained_losses={f"{v}|{c}": float(l) for (v, c), (_, l) in runner.trained.items()},
         has_ef=runner.ef is not None,
         fused_agg=bool(runner.fused_agg),
@@ -301,10 +312,13 @@ def restore_async_state(path: str, runner) -> Dict[str, Any]:
             f"fused_agg mismatch: checkpoint was written with fused_agg={fused} but the "
             f"runner has fused_agg={bool(runner.fused_agg)} — construct the runner the same "
             "way (DESIGN.md §13)")
-    if extra.get("population_layout") is not None:
+    pop = runner.population
+    ck_layout = extra.get("population_layout")
+    my_layout = pop.layout.describe() if pop is not None else None
+    if ck_layout != my_layout:
         raise ValueError(
             f"population layout mismatch: checkpoint was written with "
-            f"layout={extra['population_layout']} but the runner has layout=None — "
+            f"layout={ck_layout} but the runner has layout={my_layout} — "
             "construct the runner with the same ShardLayout (or None); cross-layout restore "
             "needs an offline reshard (DESIGN.md §14)")
     has_ef = bool(extra.get("has_ef"))
@@ -322,6 +336,8 @@ def restore_async_state(path: str, runner) -> Dict[str, Any]:
     )
     if has_ef:
         template["ef"] = dict(runner.ef)
+    if pop is not None:
+        template["counters"] = dict(round=pop.round_counters, event=pop.event_counters)
     state, _ = restore_state(path, template)
 
     from repro_torch.federated.async_engine import _BufferEntry, _Pending
@@ -337,8 +353,13 @@ def restore_async_state(path: str, runner) -> Dict[str, Any]:
     runner.pending = {int(c): _Pending(int(b), int(r), float(t))
                       for c, b, r, t in extra["pending"]}
     runner.idle = {int(c): float(t) for c, t in extra["idle"]}
-    runner.event_counters = {int(c): int(k) for c, k in extra["event_counters"].items()}
-    runner.round_counters = {int(c): int(k) for c, k in extra["round_counters"].items()}
+    if pop is not None:
+        # in-place writes keep the runner's ArrayCounters views bound
+        pop.round_counters[:] = np.asarray(state["counters"]["round"], np.int64)
+        pop.event_counters[:] = np.asarray(state["counters"]["event"], np.int64)
+    else:
+        runner.event_counters = {int(c): int(k) for c, k in extra["event_counters"].items()}
+        runner.round_counters = {int(c): int(k) for c, k in extra["round_counters"].items()}
     runner.version_storages = {int(v): s for v, s in state["versions"].items()}
     runner.trained = {(int(k.split("|")[0]), int(k.split("|")[1])): (state["trained"][k], float(l))
                       for k, l in extra["trained_losses"].items()}
@@ -354,13 +375,41 @@ def restore_async_state(path: str, runner) -> Dict[str, Any]:
     return extra
 
 
-def _unported(name: str, item: str):
-    def f(*args, **kwargs):
-        raise NotImplementedError(f"checkpoint.{name} waits for its module (ROADMAP {item})")
+def save_population_state(ckpt_dir: str, step: int, store, keep: int = 3) -> str:
+    """Checkpoint a :class:`repro_torch.scale.PopulationStore` (DESIGN.md §14).
 
-    f.__name__ = name
-    return f
+    Counters and residual rows (f32, or packed words with their per-row PVT
+    pair: the at-rest compression survives on disk) go through
+    :func:`save_state`; the manifest stamps the shard layout and the EF
+    format, so :func:`restore_population_state` refuses a mismatched load
+    instead of silently giving rows to the wrong clients.
+    """
+    extra = dict(kind="population_store", layout=store.layout.describe(),
+                 ef=store.describe_ef())
+    return save_state(ckpt_dir, step, store.state_tree(), keep=keep, extra=extra)
 
 
-save_population_state = _unported("save_population_state", "A9, scale.store")
-restore_population_state = _unported("restore_population_state", "A9, scale.store")
+def restore_population_state(path: str, store) -> Dict[str, Any]:
+    """Restore a :func:`save_population_state` checkpoint (either package's)
+    into ``store``, built with the same ``ShardLayout`` and ``init_ef``
+    configuration the saved run used; a layout, EF variable set or at-rest
+    format that differs raises ``ValueError``.  Returns the manifest's
+    ``extra``."""
+    with open(os.path.join(path, "manifest.json")) as f:
+        extra = json.load(f)["extra"]
+    if extra.get("kind") != "population_store":
+        raise ValueError(f"not a population-store checkpoint: {path}")
+    if extra["layout"] != store.layout.describe():
+        raise ValueError(
+            f"population layout mismatch: checkpoint was written with layout={extra['layout']} "
+            f"but the store has layout={store.layout.describe()} — cross-layout restore needs "
+            "an offline reshard (DESIGN.md §14)")
+    want_ef = store.describe_ef()
+    if extra.get("ef") != want_ef:
+        raise ValueError(
+            f"population EF state mismatch: checkpoint has {extra.get('ef')} but the store has "
+            f"{want_ef} — call init_ef with the same selection policy and ef_fmt before "
+            "restoring")
+    state, _ = restore_state(path, store.state_tree())
+    store.load_state_tree(state)
+    return extra

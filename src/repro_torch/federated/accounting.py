@@ -16,8 +16,8 @@ equal its ledgers byte for byte.  :class:`AsyncWireStats` is the async
 runtime's event-granular ledger.  Under a compression strategy
 (``repro_torch.compress``, DESIGN.md §12) the per-variable sizes come from
 the strategy's ``plan_wire_bytes``; a strategy whose size depends on the
-data (``pipeline``) raises ``ValueError``.  ``StreamLedger`` belongs to the
-streamed round of ``scale/stream``, not ported yet (ROADMAP A9).
+data (``pipeline``) raises ``ValueError``.  :class:`StreamLedger` states the
+resident-bytes bound of the streamed round of ``repro_torch.scale``.
 """
 
 from __future__ import annotations
@@ -289,4 +289,73 @@ class AsyncWireStats:
             stale_fraction=(float(self.stale_up_bytes / self.up_bytes)
                             if self.up_bytes else 0.0),
             dropped_fraction=float(self.dropped_up_bytes / finished) if finished else 0.0,
+        )
+
+
+@dataclasses.dataclass
+class StreamLedger:
+    """Peak-memory ledger of the fixed-capacity streamed round (DESIGN.md §14).
+
+    The :class:`AsyncWireStats` counterpart for *resident bytes* instead of
+    wire bytes: the streamed round's contract is that its peak live model
+    state is a function of the stream ``capacity`` alone, never of the
+    cohort or population size.  :meth:`peak_bound_bytes` states that bound
+    from the same :class:`WireTable` rows every other ledger uses:
+
+      * the compressed-at-rest server storage (``download_bytes``),
+      * its transient f32 decode (``fp32_total``),
+      * one ``capacity``-wide stack of f32 client models,
+      * one f32 partial-sum accumulator tree.
+
+    ``on_chunk`` records the streaming (and optionally a measured device
+    bytes sample from the round's instrumentation hook);
+    ``benchmarks_torch/population_scale.py`` asserts the bound is the same
+    across a 1k to 100k population sweep and the measured peaks flat.
+    """
+
+    table: WireTable
+    omc: OMCConfig
+    capacity: int
+    chunks: int = 0
+    clients_streamed: int = 0
+    peak_measured_bytes: int = 0
+
+    def __post_init__(self):
+        if self.capacity < 1:
+            raise ValueError(f"capacity must be >= 1, got {self.capacity}")
+
+    @property
+    def chunk_stack_bytes(self) -> int:
+        """One fixed-width stack of f32 client models."""
+        return self.capacity * self.table.fp32_total
+
+    @property
+    def accumulator_bytes(self) -> int:
+        """The running f32 partial-sum tree (one model's worth)."""
+        return self.table.fp32_total
+
+    def peak_bound_bytes(self) -> int:
+        """Peak resident model bytes, determined by the capacity alone."""
+        return (self.table.download_bytes(self.omc)  # storage at rest
+                + self.table.fp32_total  # transient server decode
+                + self.chunk_stack_bytes
+                + self.accumulator_bytes)
+
+    def on_chunk(self, n_real: int, measured_bytes: Optional[int] = None) -> None:
+        if not 1 <= n_real <= self.capacity:
+            raise ValueError(f"chunk holds {n_real} clients, capacity is {self.capacity}")
+        self.chunks += 1
+        self.clients_streamed += n_real
+        if measured_bytes is not None:
+            self.peak_measured_bytes = max(self.peak_measured_bytes, int(measured_bytes))
+
+    def snapshot(self) -> dict:
+        return dict(
+            capacity=int(self.capacity),
+            chunks=int(self.chunks),
+            clients_streamed=int(self.clients_streamed),
+            chunk_stack_bytes=int(self.chunk_stack_bytes),
+            accumulator_bytes=int(self.accumulator_bytes),
+            peak_bound_bytes=int(self.peak_bound_bytes()),
+            peak_measured_bytes=int(self.peak_measured_bytes),
         )

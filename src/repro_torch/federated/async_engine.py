@@ -43,8 +43,11 @@ the reference.  ``obs`` (a ``repro_torch.obs.Obs``, DESIGN.md §15) adds a
 virtual clock), ``dispatch`` and ``flush`` wall spans, and a ``flush``
 record per flush with the staleness list and the wire ledger; with metrics
 on, the unfused flush hands back the buffer mean it already computed and
-the bundle is built from it afterwards.  ``population`` raises until the
-population store is ported (ROADMAP A9).
+the bundle is built from it afterwards.  ``population`` (a
+``repro_torch.scale.PopulationStore`` over ``num_clients`` clients) keeps
+the per-client round and event counters in the store's arrays instead of
+dicts; its EF residuals are not used here (``runner.ef`` stays dense), as in
+the reference.
 """
 
 from __future__ import annotations
@@ -234,9 +237,9 @@ class AsyncRunner:
                  data_fn: Callable[[Any, Any, Any], Any], init_key=None, init_params=None,
                  wire: bool = True, strategy=None, ste: bool = False, fused_agg: bool = False,
                  population=None, obs=None, device="cuda"):
-        if population is not None:
-            raise NotImplementedError("population-backed counters (population=) wait for "
-                                      "scale.store (ROADMAP A9)")
+        if population is not None and population.layout.num_clients != int(num_clients):
+            raise ValueError(f"population store holds {population.layout.num_clients} clients "
+                             f"but the runner was given num_clients={num_clients}")
         if init_key is None and init_params is None:
             raise ValueError("need init_key or init_params")
         if fused_agg and (strategy is not None or not omc.enabled):
@@ -283,8 +286,15 @@ class AsyncRunner:
         self.pending: Dict[int, _Pending] = {}  # cid -> in-flight round
         self.idle: Dict[int, float] = {  # cid -> next check-in time
             c: self.trace.first_checkin(c) for c in range(self.num_clients)}
-        self.event_counters: Dict[int, int] = {c: 0 for c in range(self.num_clients)}
-        self.round_counters: Dict[int, int] = {c: 0 for c in range(self.num_clients)}
+        # per-client counters: plain dicts, or with ``population=`` the
+        # store's dense arrays behind the same mapping surface (DESIGN.md §14)
+        self.population = population
+        if population is not None:
+            self.event_counters: Any = population.event_view()
+            self.round_counters: Any = population.round_view()
+        else:
+            self.event_counters = {c: 0 for c in range(self.num_clients)}
+            self.round_counters = {c: 0 for c in range(self.num_clients)}
         self.version_storages: Dict[int, Any] = {}  # v -> storage at v
         self.trained: Dict[Tuple[int, int], Tuple[Any, float]] = {}
         self.history: List[Dict[str, Any]] = []

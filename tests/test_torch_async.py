@@ -55,6 +55,7 @@ from repro_torch.data.synthetic import make_frame_task
 from repro_torch.federated import accounting, async_engine, cohort, engine, simulate, traces
 from repro_torch.kernels import ops
 from repro_torch.models import conformer as cf
+from repro_torch.scale import PopulationStore, ShardLayout
 
 torch.set_num_threads(1)
 
@@ -519,7 +520,9 @@ def test_in_flight_accounting(init):
 @pytest.mark.parametrize("kw,err,match", [
     (dict(strategy="topk", fused_agg=True), ValueError, "no zoo strategy"),
     (dict(obs=object()), AttributeError, "collect_metrics"),  # not an Obs: refused
-    (dict(population=object()), NotImplementedError, "ROADMAP A9"),
+    # a population store over another number of clients: the reference's refusal
+    (dict(population=PopulationStore(ShardLayout(6, 2), device="cpu")), ValueError,
+     "population store holds 6 clients"),
     (dict(fused_agg=True, omc="S1E8M23"), ValueError, "OMC enabled"),
 ], ids=["fused_with_strategy", "obs", "population", "fused_without_omc"])
 def test_unported_and_invalid_arguments_raise(kw, err, match):

@@ -149,15 +149,26 @@ def test_structure_mismatch_raises(tmp_path):
 
 
 def test_async_and_population_checkpoints_name_the_roadmap(tmp_path):
-    """The population snapshots wait for ``scale.store`` (ROADMAP A9); the
-    async ones are ported (tests/test_torch_async.py holds them to the
-    reference) and refuse a checkpoint that is not an async runner's."""
-    for fn in (ck.save_population_state, ck.restore_population_state):
-        with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-            fn("unused", None)
+    """The population snapshots came with ``scale.store`` (ROADMAP A9): a
+    store's counters round-trip, and a checkpoint that is not a population
+    store's is refused (tests/test_torch_scale.py holds them to the
+    reference); the async ones refuse a checkpoint that is not an async
+    runner's."""
+    from repro_torch.scale import PopulationStore, ShardLayout
+
+    store = PopulationStore(ShardLayout(6, 2), device="cpu")
+    store.note_round([1, 4], alive=[True, False])
+    path = ck.save_population_state(str(tmp_path / "pop"), 1, store)
+    fresh = PopulationStore(ShardLayout(6, 2), device="cpu")
+    assert ck.restore_population_state(path, fresh)["layout"] == store.layout.describe()
+    assert list(fresh.round_counters) == [0, 1, 0, 0, 1, 0]
+    assert list(fresh.event_counters) == [0, 1, 0, 0, 0, 0]
     ck.save_state(str(tmp_path), 1, _state())
+    plain = ck.latest_checkpoint(str(tmp_path))[0]
+    with pytest.raises(ValueError, match="not a population-store checkpoint"):
+        ck.restore_population_state(plain, fresh)
     with pytest.raises(ValueError, match="not an async-runner checkpoint"):
-        ck.restore_async_state(ck.latest_checkpoint(str(tmp_path))[0], None)
+        ck.restore_async_state(plain, None)
 
 
 @pytest.fixture(scope="module")

@@ -125,18 +125,24 @@ def test_strategy_arguments_keep_the_plain_bits(init, plain, kw):  # noqa: F811
 @pytest.mark.parametrize("kw", [dict(obs=object())], ids=["obs"])
 def test_later_slices_raise_naming_the_roadmap(kw, tmp_path):
     """``obs=`` itself works (tests/test_torch_obs.py) and a handle that is
-    not a ``repro_torch.obs.Obs`` is refused, never ignored; what telemetry
-    still waits for, the streamed population (``scale``), raises naming
-    ROADMAP A9 under a live handle."""
+    not a ``repro_torch.obs.Obs`` is refused, never ignored; since the
+    streamed population (``scale``) came, a population-backed runner under a
+    live handle records its flush, its counters in the store's arrays."""
     from repro_torch.federated import async_engine, traces
     from repro_torch.obs import Obs
+    from repro_torch.scale import ArrayCounters, PopulationStore, ShardLayout
 
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        async_engine.AsyncRunner(
-            cf, CFG, OMCConfig.parse("S1E3M7"), simulate.SimConfig(),
-            async_engine.AsyncConfig(buffer_goal=2), traces.FixedTrace(latency=1.0),
-            num_clients=4, data_fn=data, init_key=prng.PRNGKey(0), population=object(),
-            obs=Obs(run_name="population", out_dir=str(tmp_path)), device="cpu")
+    store = PopulationStore(ShardLayout(4, 2), device="cpu")
+    obs = Obs(run_name="population", out_dir=str(tmp_path))
+    runner = async_engine.AsyncRunner(
+        cf, CFG, OMCConfig.parse("S1E3M7"), simulate.SimConfig(),
+        async_engine.AsyncConfig(buffer_goal=2), traces.FixedTrace(latency=1.0),
+        num_clients=4, data_fn=data, init_key=prng.PRNGKey(0), population=store, obs=obs,
+        device="cpu")
+    runner.run_until(flushes=1)
+    assert isinstance(runner.round_counters, ArrayCounters) and store.round_counters.sum() == 4
+    (rec,) = obs.sink.records("flush")
+    assert rec["buffer"] == 2 and rec["update_norm"] > 0
     with pytest.raises(AttributeError, match="has no attribute"):
         engine.run_training_vectorized(cf, CFG, OMCConfig.parse("S1E3M7"), simulate.SimConfig(),
                                        engine.CohortSpec(CohortPlan(16, 8)), data,

@@ -60,7 +60,7 @@ def test_examples_import_no_jax_and_no_reference():
     proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert len(list((ROOT / "examples_torch").glob("*.py"))) == 6
+    assert len(list((ROOT / "examples_torch").glob("*.py"))) == 7
 
 
 def _imported_roots(path: Path):
@@ -146,6 +146,26 @@ def test_sessions_without_a_card_raise_instead_of_using_the_cpu(monkeypatch):
         demo.main(["--smoke"])
 
 
+def test_population_runtime_without_a_card_raises_instead_of_using_the_cpu(monkeypatch):
+    from repro_torch.core import prng
+    from repro_torch.core.omc import OMCConfig
+    from repro_torch.federated import simulate
+    from repro_torch.federated.cohort import CohortPlan
+    from repro_torch.models import conformer
+    from repro_torch.scale import PopulationStore, ShardLayout, run_training_sharded
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = conformer.ConformerConfig(n_layers=1, d_model=16, n_heads=2, d_ff=32, n_classes=8,
+                                    d_in=4)
+    omc = OMCConfig.parse("S1E3M7")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_training_sharded(conformer, cfg, omc, simulate.SimConfig(), CohortPlan(8, 4),
+                             ShardLayout(8, 2), None, prng.PRNGKey(0), 1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PopulationStore(ShardLayout(8, 2)).init_ef(conformer.init(prng.PRNGKey(0), cfg, "meta"),
+                                                   conformer.param_specs(cfg), omc)
+
+
 def test_unported_archs_and_families_name_the_roadmap():
     assert get_arch("qwen2.5-3b").ID == "qwen2.5-3b"
     with pytest.raises(KeyError, match="ROADMAP"):
@@ -167,7 +187,7 @@ def test_partitioned_data_without_a_card_raises_instead_of_using_the_cpu(monkeyp
                                      DirichletPartition(), 2)(1, 0, 0)["labels"].shape == (2, 8)
 
 
-@pytest.mark.parametrize("script", ["quickstart", "cohort_scenarios"])
+@pytest.mark.parametrize("script", ["quickstart", "cohort_scenarios", "population_scale"])
 def test_examples_without_a_card_raise_instead_of_using_the_cpu(monkeypatch, script):
     import importlib.util
 

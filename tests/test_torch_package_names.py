@@ -1,11 +1,12 @@
-"""The package-level names of ``core``, ``api``, ``data`` and ``obs``: the
-port's against the reference's.
+"""The package-level names of ``core``, ``api``, ``data``, ``obs`` and
+``scale``: the port's against the reference's.
 
 Each package's public names (its ``__all__``; the reference's ``api`` has
 none, so its public non-module names) are compared.  The port must define
 every name it exports, export none the reference lacks, and lack none:
 ``core`` has all of the reference's since the compression strategies came
-(ROADMAP A7), ``obs`` its seven since telemetry came (ROADMAP A11).
+(ROADMAP A7), ``obs`` its seven since telemetry came (ROADMAP A11), ``scale``
+its twelve since the sharded population runtime came (ROADMAP A9).
 """
 
 import importlib
@@ -22,7 +23,7 @@ def _public(mod):
 
 
 @pytest.mark.parametrize("pkg, missing", [("core", set()), ("api", set()), ("data", set()),
-                                          ("obs", set())])
+                                          ("obs", set()), ("scale", set())])
 def test_package_names_match_the_reference(pkg, missing):
     ref = importlib.import_module(f"repro.{pkg}")
     port = importlib.import_module(f"repro_torch.{pkg}")
@@ -44,3 +45,7 @@ def test_package_name_counts():
     import repro_torch.obs
 
     assert len(repro_torch.obs.__all__) == 7
+    import repro.scale
+    import repro_torch.scale
+
+    assert len(repro.scale.__all__) == 12 and len(repro_torch.scale.__all__) == 12

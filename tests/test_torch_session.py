@@ -326,23 +326,26 @@ def test_async_session_guards_match_reference(jinit):
 
 
 def test_unported_arguments_name_the_roadmap(tmp_path):
-    """The population store's arguments still raise naming ROADMAP A9;
-    ``strategy=`` and ``obs=`` on the sessions no longer raise."""
+    """Since the population store came (ROADMAP A9) its arguments no longer
+    raise: ``population=`` backs the runner's counters and the population
+    checkpoints round-trip; ``strategy=`` and ``obs=`` on the sessions no
+    longer raise."""
     from repro_torch.checkpoint import restore_population_state, save_population_state
     from repro_torch.core import prng
     from repro_torch.federated import async_engine, simulate
     from repro_torch.models import conformer
     from repro_torch.obs import Obs
+    from repro_torch.scale import ArrayCounters, PopulationStore, ShardLayout
 
     ccfg = conformer.ConformerConfig(n_layers=1, d_model=16, n_heads=2, d_ff=32, n_classes=8,
                                      d_in=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        async_engine.AsyncRunner(conformer, ccfg, OMC, simulate.SimConfig(),
-                                 async_engine.AsyncConfig(2), num_clients=4, data_fn=None,
-                                 init_key=prng.PRNGKey(0), population=object(), device="cpu")
-    for fn in (save_population_state, restore_population_state):
-        with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-            fn(str(tmp_path), None)
+    store = PopulationStore(ShardLayout(4, 2), device="cpu")
+    runner = async_engine.AsyncRunner(conformer, ccfg, OMC, simulate.SimConfig(),
+                                      async_engine.AsyncConfig(2), num_clients=4, data_fn=None,
+                                      init_key=prng.PRNGKey(0), population=store, device="cpu")
+    assert isinstance(runner.event_counters, ArrayCounters) and runner.population is store
+    restore_population_state(save_population_state(str(tmp_path), 0, store),
+                             PopulationStore(ShardLayout(4, 2), device="cpu"))
     obs = Obs("sessions", out_dir=str(tmp_path))
     sess = FLSession(tr, CFG, OMC, strategy="omc", obs=obs, device="cpu")
     assert sess.strategy.name == "omc" and sess.obs is obs
