@@ -89,8 +89,8 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
      d 2560, vocab 256,000; batch 4, prompt 32, 16 new tokens, with the wire
      roundtrip): 200 ``dequant_matmul`` and 20 ``dequantize`` launches per
      forward pass, no plain version run, payload ratio <= 0.35.
-  6. Card against CPU for griffin: its storage cut to 5 layers (the first
-     super block and the two extra recurrent blocks) at full width and to
+  6. Card against CPU for griffin: its storage cut to 3 layers (the first
+     super block: two recurrent blocks and one attention block) at full width and to
      phase 4's 32,768-row vocabulary (the 256,000-row head decoded on the
      CPU once a forward pass was the script's largest cost; phase 5 serves
      the full vocabulary on the card, and phase 2 holds B1 and B2 on the
@@ -148,7 +148,7 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
      f32, and ``benchmarks_torch/memory_measured.py``'s table.
  12. Card against CPU for the round: ``make_round_fn`` with ``fedavg(1.0)``
      on conformer_s cut to 2 layers at full width (S1E4M14, a frame batch
-     8 x 48; 2 rounds) and on qwen2.5-3b cut to 2 layers at full width (d
+     8 x 48; 1 round) and on qwen2.5-3b cut to 1 layer at full width (d
      2048, tied head) and to the LM batch's vocabulary of 4096 (S1E3M7, a
      4 x 32 batch of the non-IID LM task, ``make_lm_task(vocab=4096,
      seq_len=32, iid=False)``, drawn on the card; 1 round: the CPU side's
@@ -164,9 +164,9 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
  13. The async runtime at full width (``federated.async_engine.AsyncRunner``),
      under ``torch.use_deterministic_algorithms(True)``: phase 7's model,
      task and format, 1 local step at lr 0.1.  A degenerate trace (8
-     clients, ``buffer_goal`` 8, ``FixedTrace``, decay 0, 2 flushes) against
-     2 rounds of the engine at cohort 8 of 8: ledgers equal the engine's
-     summed, trees within phase 7's gate.  A straggler run (32 clients,
+     clients, ``buffer_goal`` 8, ``FixedTrace``, decay 0, 1 flush) against
+     1 round of the engine at cohort 8 of 8: ledgers equal the engine's,
+     trees within phase 7's gate.  A straggler run (32 clients,
      ``buffer_goal`` 8, ``ParetoTrace(alpha=1.5)``, poly decay 0.5,
      ``max_staleness`` 4, 3 flushes), fused and unfused from one seed: the
      same history rows but the loss (buffer, staleness, clock, ledger),
@@ -320,10 +320,28 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
      demo's transformer: 2 payloads, 4 queries each, 2 swaps, the stall
      under 10x, ``dequant_matmul`` launched.  Counters are zeroed around each
      part's runs (not its comparisons): B1, B2, B4 and B6 launched.
+ 20. Launch and roofline on the card (``repro_torch.launch``,
+     ``roofline``).  (a) For qwen2.5-3b and recurrentgemma-2b, phases 3 and
+     5's served storage (kept in host memory since phases 4 and 6) against
+     ``launch.dryrun``'s meta build of the same cell (``make_host_mesh(1,
+     1)``, S1E3M7, batch 4, the serve path's f32 decode state of 4 x (32 +
+     16) slots): every leaf's shape and dtype equal, the predicted
+     ``argument_size_in_bytes`` equal to the nbytes of the storage, decode
+     state and token batch put back on the card, exactly, with
+     ``memory_allocated`` around placing them printed beside; the meta
+     trace of one decode step calls each kernel as often as a forward pass
+     launched it in phase 3 or 5.  (b) ``benchmarks_torch/kernels_micro.py``
+     in card mode, in process: B3, B2 and B6 at the reference's codec sizes,
+     B4 at six widths and B5 at cohort 8 in S1E3M7 and S1E4M14, each row's
+     ms (CUDA events, L2 flushed), ``bound_ms`` and moved over bound, every
+     moved/bound <= 2.  (c) ``PopulationStore.device_ef`` on phase 19 (c)'s
+     packed S1E3M7 store: ``make_population_mesh(num_shards=4)`` clamps to
+     the one card, and every row is the same bits as ``gather_ef``'s.
+     Counters are zeroed around (b) and (c) (not (c)'s comparison).
 
 Each phase's wall seconds are printed on a line of their own.  It then
 prints one JSON line describing each kernel (``launches_by_path`` has the
-main paths of phases 3, 5, 7, 9, 11, 13, 15, 16, 17, 18 and 19) and, last, the line
+main paths of phases 3, 5, 7, 9, 11, 13, 15, 16, 17, 18, 19 and 20) and, last, the line
 ``{"ok": true, "device": {...}}``.  f32 matmuls run in full f32: TF32 is
 switched off for matmuls and cuDNN.  Exits non-zero without a CUDA device.
 """
@@ -376,7 +394,11 @@ from repro_torch import checkpoint as ck  # noqa: E402
 from repro_torch.federated.round import make_round_fn  # noqa: E402
 from repro_torch.federated.state import (compress_params, init_state,  # noqa: E402
                                          n_stack_axes, state_bytes_report)
+from repro_torch.configs.shapes import Shape  # noqa: E402
 from repro_torch.kernels import agg  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch import mesh as launch_mesh  # noqa: E402
+from repro_torch.launch import specs as launch_specs  # noqa: E402
 from repro_torch.kernels import bitpack as bk  # noqa: E402
 from repro_torch.kernels import dequant_matmul as dm  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
@@ -447,6 +469,7 @@ DRIVER_DIR = ROOT / "build" / "train_driver"
 ASYNC_DIR = ROOT / "build" / "async"  # phase 13's mid-buffer checkpoint
 ASYNC_SIM = simulate.SimConfig(local_steps=1, client_lr=0.1)
 ASYNC_FLUSHES = 3  # phase 13's straggler run
+DEGENERATE_FLUSHES = 1  # phase 13's degenerate trace against the engine
 ASYNC_STALENESS = np.asarray([0, 0, 1, 1, 2, 3, 5, 8], np.float32)  # phase 2's K = 8 buffer
 SESSION_PLAN = CohortPlan(num_clients=8, cohort_size=4)  # phase 15
 # phase 15's card against CPU: the protocol at one layer (at two, the CPU's
@@ -1245,21 +1268,22 @@ def phase_card_vs_cpu(sess: ServeSession) -> float:
 
 
 def phase_griffin_card_vs_cpu(sess: ServeSession) -> float:
-    """The first super block (two recurrent blocks and one attention block)
-    and the two extra recurrent blocks: 5 layers at full width."""
+    """The first super block (two recurrent blocks and one attention block):
+    3 layers at full width."""
     st = sess.storage
     cut = dict(embed=vocab_cut(st["embed"]), final_norm=st["final_norm"],
-               extra_rec=st["extra_rec"],
                super_blocks={part: {k: v[:1] for k, v in leaves.items()}
                              for part, leaves in st["super_blocks"].items()})
-    cfg5 = dataclasses.replace(GCFG, n_layers=5, vocab=CUT_VOCAB)
-    require((cfg5.n_super, cfg5.n_extra_rec) == (1, GCFG.n_extra_rec), "griffin cut")
+    cfg3 = dataclasses.replace(GCFG, n_layers=3, vocab=CUT_VOCAB)
+    require((cfg3.n_super, cfg3.n_extra_rec) == (1, 0), "griffin cut")
     # one decode step on phase 4's vocabulary cut: the CPU side decoded the
     # 256,000 x 2560 tied head in plain PyTorch once a forward pass, the
     # script's largest cost.  Phase 5 serves the full vocabulary on the
     # card, and phase 2 holds B1 and B2 against the plain versions on the
-    # full [256000, 2560] head
-    return card_vs_cpu(f"recurrentgemma-2b, 5 layers, vocab {CUT_VOCAB:,}", griffin, cfg5, cut,
+    # full [256000, 2560] head.  The two extra recurrent blocks ran the
+    # recurrent block's code again on the CPU: 3 layers hold each block kind
+    # once, and phase 5 runs all 26 on the card
+    return card_vs_cpu(f"recurrentgemma-2b, 3 layers, vocab {CUT_VOCAB:,}", griffin, cfg3, cut,
                        decode_steps=1)
 
 
@@ -1668,14 +1692,16 @@ def round_card_vs_cpu(name: str, family, cfg, fmt: str, batch: dict, rounds: int
 def phase_round_card_vs_cpu() -> dict:
     ccfg = dataclasses.replace(TRAIN_CFG, n_layers=2)
     task = make_frame_task(d_in=ccfg.d_in, n_classes=ccfg.n_classes, seq_len=48, num_clients=16)
-    conf = round_card_vs_cpu("conformer_s", conformer, ccfg, "S1E4M14", task.batch(0, 0, 0, 8), 2)
+    conf = round_card_vs_cpu("conformer_s", conformer, ccfg, "S1E4M14", task.batch(0, 0, 0, 8), 1)
     torch.cuda.empty_cache()
-    # 2 layers at full width (d 2048) and the LM batch's vocabulary of 4096:
+    # 1 layer at full width (d 2048) and the LM batch's vocabulary of 4096:
     # the CPU side's plain versions on the full 151,936 x 2048 tied
     # embedding took half the phase (the qwen round 120.1 s at the full
     # vocabulary against 57.3 s at 4096 on an H100 80GB HBM3 at 700 W); the
-    # full vocabulary serves in phase 3 and is held in phase 2
-    qcfg = dataclasses.replace(CFG, n_layers=2, vocab=LM_VOCAB)
+    # full vocabulary serves in phase 3 and is held in phase 2.  A second
+    # layer ran the same block's code again on the CPU; phase 11's driver
+    # trains every layer of conformer_s on the card
+    qcfg = dataclasses.replace(CFG, n_layers=1, vocab=LM_VOCAB)
     lm = lm_batch_card_vs_cpu()
     qwen = round_card_vs_cpu("qwen2.5-3b", transformer, qcfg, "S1E3M7", lm.pop("batch"), 1)
     torch.cuda.empty_cache()
@@ -1821,15 +1847,16 @@ def _phase_async() -> dict:
     torch.cuda.empty_cache()
     ops.reset_launch_counts()
     runner = async_runner(cfg, params, data8, 8, acfg, trace, fused=False)
-    runner.run_until(flushes=2)
+    runner.run_until(flushes=DEGENERATE_FLUSHES)
     counts["degenerate"] = ops.launch_counts()
-    want = plain_async_counts(8, acfg, trace, False, 2)
+    want = plain_async_counts(8, acfg, trace, False, DEGENERATE_FLUSHES)
     require_launches(counts["degenerate"], "async degenerate", fused_aggregate=0,
                      **{k.split(".")[0]: v for k, v in want.items()})
     require(set(counts["degenerate"]) == set(want), f"degenerate: {counts['degenerate']} {want}")
     est, ehist = engine.run_training_vectorized(conformer, cfg, omc, ASYNC_SIM,
                                                 engine.CohortSpec(CohortPlan(8, 8)), data8,
-                                                prng.PRNGKey(0), 2, init_params=params)
+                                                prng.PRNGKey(0), DEGENERATE_FLUSHES,
+                                                init_params=params)
     for i, h in enumerate(runner.history):
         require(h["buffer"] == 8 and h["staleness_max"] == 0, f"degenerate flush {h}")
         for k in ("down_bytes", "up_bytes"):
@@ -1837,7 +1864,8 @@ def _phase_async() -> dict:
         require(abs(h["loss"] - ehist[i]["loss"]) < 1e-3, f"degenerate losses {h} {ehist[i]}")
     gap = tree_gap(runner.storage, est)
     require(gap[0] <= TREE_MAX and gap[1] <= TREE_MEAN, f"degenerate vs engine trees {gap}")
-    print(f"  degenerate trace, 8 clients, 2 flushes: ledgers equal the engine's summed "
+    print(f"  degenerate trace, 8 clients, {DEGENERATE_FLUSHES} flush: ledgers equal the "
+          f"engine's summed "
           f"({runner.history[-1]['down_bytes']:,} down, {runner.history[-1]['up_bytes']:,} up), "
           f"trees max |d| {gap[0]:.3g}, mean |d| {gap[1]:.3g}; launches "
           f"{counts['degenerate']} (the plain versions' on the CPU)")
@@ -3469,7 +3497,7 @@ def phase_scale(engine_fused=None, engine_unfused=None, engine_topk=None) -> dic
              ("(b) bounded memory", lambda: scale_memory(params, omc)),
              ("(c) store-backed EF", store_backed_ef),
              ("(d) checkpoints and async", lambda: scale_checkpoints(
-                 params, omc, parts["(c) store-backed EF"].pop("packed"))),
+                 params, omc, parts["(c) store-backed EF"]["packed"])),
              ("(e) serve under swap", lambda: scale_serve(omc)))
     for name, fn in steps:
         t0 = time.perf_counter()
@@ -3481,7 +3509,166 @@ def phase_scale(engine_fused=None, engine_unfused=None, engine_topk=None) -> dic
     require_launches(counts, "scale", quantize_stats=None, dequantize=None, pack=None,
                      unpack=None, dequant_matmul=None)
     print("  parts: " + ", ".join(f"{k} {v:.1f} s" for k, v in times.items()))
-    return dict(counts=counts, times=times, parts=parts)
+    return dict(counts=counts, times=times, parts=parts,
+                packed=parts["(c) store-backed EF"].pop("packed"))
+
+
+# ---------------------------------------------------------------------------
+# 20. launch and roofline on the card
+# ---------------------------------------------------------------------------
+
+SERVE_CACHE_LEN = 4 * (32 + 16)  # serve_full_width's decode state: 4 x (prompt + new tokens)
+LAUNCH_ARCHS = (("qwen2.5-3b", transformer, CFG, QWEN_PER_FORWARD),
+                ("recurrentgemma-2b", griffin, GCFG, GRIFFIN_PER_FORWARD))
+
+
+def to_host(tree, arch_id: str):
+    """A served storage tree copied to host memory, where it waits for phase
+    20 (kept on the card, it would add its bytes to phases 7-19's peaks)."""
+    t0 = time.perf_counter()
+    out = tree_map(lambda x: x.to("cpu"), tree)
+    print(f"  {arch_id}'s served storage to the host for phase 20: "
+          f"{time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def launch_dryrun_vs_card(arch_id: str, family, cfg, per_forward: dict, storage) -> dict:
+    """(a) The dry-run's meta build of the served cell (``make_host_mesh(1,
+    1)``, S1E3M7, batch 4, the serve path's f32 cache of ``SERVE_CACHE_LEN``)
+    against the same objects on the card: every leaf's shape and dtype, and
+    the predicted ``argument_size_in_bytes`` equal to the card's nbytes
+    exactly; ``memory_allocated`` around placing them printed beside.  The
+    meta trace of one decode step calls each kernel as often as a forward
+    pass launched it in phase 3 or 5."""
+    mesh = launch_mesh.make_host_mesh(1, 1)
+    t0 = time.perf_counter()
+    cell = dryrun.build_cell(arch_id, Shape("phase3", "decode", SERVE_CACHE_LEN, 4), mesh=mesh,
+                             fmt=FMT.name, cache_dtype=torch.float32)
+    counter = dryrun.trace_cell(cell)
+    meta_s = time.perf_counter() - t0
+    predicted = dryrun.argument_bytes(cell)
+    calls = {k[len("kernel."):]: v for k, v in counter.ops.items() if k.startswith("kernel.")}
+    require(calls == per_forward, f"{arch_id}: the meta decode step calls {calls}, a forward pass "
+            f"on the card launched {per_forward}")
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    card = dict(params=tree_map(lambda x: x.to("cuda"), storage),
+                cache=family.init_decode_state(cfg, 4, SERVE_CACHE_LEN, dtype=torch.float32,
+                                               device="cuda"),
+                batch=dict(tokens=torch.zeros((4, 1), dtype=torch.int64, device="cuda")))
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated() - before
+    placed = dict(params=launch_specs.annotate_tree(card["params"], family.param_specs(cfg), mesh),
+                  cache=launch_specs.annotate_cache(card["cache"], cell.arch.FAMILY, cfg, mesh),
+                  batch=launch_specs.annotate_batch(card["batch"], mesh))
+    nbytes = {}
+    for name, tree in placed.items():
+        got = list(dryrun.sharded_leaves(tree))
+        want = list(dryrun.sharded_leaves(cell.inputs[name]))
+        require(len(got) == len(want) > 0, f"{arch_id} {name}: {len(got)} leaves, {len(want)} "
+                f"predicted")
+        for g, w in zip(got, want):
+            require(g.shape == w.shape and g.dtype == w.dtype and g.value.is_cuda,
+                    f"{arch_id} {name}: card {tuple(g.shape)} {g.dtype}, meta {tuple(w.shape)} "
+                    f"{w.dtype}")
+        nbytes[name] = sum(g.value.nbytes for g in got)
+    require(predicted == nbytes, f"{arch_id}: predicted {predicted}, on the card {nbytes}")
+    total = sum(nbytes.values())
+    print(f"  (a) {arch_id}: predicted argument_size_in_bytes {sum(predicted.values()):,} B "
+          f"({predicted}) = the card's nbytes {total:,} B; memory_allocated around placing "
+          f"them {allocated:,} B ({allocated / total:.6f}x); meta build and decode-step trace "
+          f"{meta_s:.2f} s, kernel calls {calls}")
+    del card, placed
+    return dict(predicted=predicted, nbytes=nbytes, allocated=allocated, meta_s=meta_s,
+                calls=calls)
+
+
+def launch_kernels_micro() -> dict:
+    """(b) ``benchmarks_torch/kernels_micro.py`` in card mode, in process:
+    every moved byte count within 2x of its roofline bound."""
+    km = importlib.import_module("benchmarks_torch.kernels_micro")
+    out = km.run(smoke=False, device="cuda")
+    for r in out["bitpack"]:
+        for key in ("moved_over_bound", "unpack_moved_over_bound"):
+            require(r[key] <= km.MAX_MOVED_OVER_BOUND, f"B4 width {r['width']}: {key} {r[key]}")
+    for r in out["fused_aggregate"]:
+        require(r["moved_over_bound"] <= km.MAX_MOVED_OVER_BOUND, f"B5 {r['fmt']}: {r}")
+    for r in out["codec"]:
+        print(f"  (b) {r['kernel']} {r['fmt']} {r['shape']}: {r['ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), share {r['share']:.3f}; plain "
+              f"{r['plain_ms']:.4f} ms")
+    for r in out["bitpack"]:
+        print(f"  (b) B4 width {r['width']}, n {r['n']:,}: pack {r['pack_ms']:.4f} / unpack "
+              f"{r['unpack_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms, moved/bound "
+              f"{r['moved_over_bound']:.4f} / {r['unpack_moved_over_bound']:.4f}")
+    for r in out["fused_aggregate"]:
+        print(f"  (b) B5 {r['fmt']} cohort {r['cohort']}, n {r['n']:,}: {r['ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms, moved/bound {r['moved_over_bound']:.4f}; plain "
+              f"{r['plain_ms']:.4f} ms")
+    return out
+
+
+def launch_device_ef(packed) -> dict:
+    """(c) ``PopulationStore.device_ef`` on phase 19 (c)'s packed S1E3M7
+    store: the population mesh clamped to the one card, every row decoded
+    there (B4 ``unpack`` + B2) the same bits as ``gather_ef``'s."""
+    mesh = launch_mesh.make_population_mesh(num_shards=4)
+    require(mesh.axis_names == ("clients",) and mesh.devices.shape == (1,)
+            and mesh.devices.flat[0].type == "cuda", f"population mesh {mesh.devices}")
+    ids = np.arange(packed.layout.num_clients)
+    rows, counts = _counted(packed.device_ef, mesh)
+    require_launches(counts, "device_ef", unpack=None, dequantize=None)
+    want = packed.gather_ef(ids)  # the comparison: not counted
+    for name, v in rows.items():
+        require(v.sharding.spec == () and v.value.is_cuda and v.shape[0] == ids.size,
+                f"device_ef {name}: {v.sharding} {tuple(v.shape)}")
+        require(bit_equal(v.value, want[name]), f"device_ef {name}: rows differ from gather_ef")
+    nonzero = sum(int(bool((v.value != 0).any())) for v in rows.values())
+    print(f"  (c) device_ef on the packed {packed.ef_fmt.name} store: {ids.size} clients x "
+          f"{len(rows)} leaves on the population mesh clamped to {mesh.devices.size} card "
+          f"(num_shards 4), replicated; every row the same bits as gather_ef's ({nonzero} "
+          f"leaves with non-zero rows); launches {counts}")
+    return dict(counts=counts, leaves=len(rows))
+
+
+def phase_launch(served=None, packed=None) -> dict:
+    """``served``: ``{arch_id: host storage tree}`` from phases 3 and 5;
+    ``packed``: phase 19 (c)'s packed store.  Each is made here when not
+    given (the phase run alone)."""
+    if served is None:
+        served = {}
+        for arch_id, *_ in LAUNCH_ARCHS:
+            sess = serve_full_width(arch_id, more_batches=0)["session"]
+            served[arch_id] = to_host(sess.storage, arch_id)
+            del sess
+    if packed is None:
+        packed = scale.PopulationStore(scale.ShardLayout(16, 2))
+        shapes = conformer.init(prng.PRNGKey(0), TRAIN_CFG, "meta")
+        packed.init_ef(shapes, conformer.param_specs(TRAIN_CFG), OMCConfig.parse(FMT.name),
+                       ef_fmt=FMT)
+        g = torch.Generator(device="cuda").manual_seed(5)
+        packed.scatter_ef([2, 9], {k: torch.randn((2,) + v.shape, generator=g, device="cuda")
+                                   * 0.01 for k, v in packed._ef.items()})
+    parts, times = {}, {}
+    for arch_id, family, cfg, per_forward in LAUNCH_ARCHS:
+        t0 = time.perf_counter()
+        parts[arch_id] = launch_dryrun_vs_card(arch_id, family, cfg, per_forward,
+                                               served.pop(arch_id))
+        times[f"(a) {arch_id}"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    micro = launch_kernels_micro()
+    micro_counts = ops.launch_counts()
+    times["(b) kernels_micro"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ef = launch_device_ef(packed)
+    times["(c) device_ef"] = time.perf_counter() - t0
+    counts = _plus(micro_counts, ef["counts"])
+    require_launches(counts, "launch", quantize=None, dequantize=None, dequant_matmul=None,
+                     pack=None, unpack=None, fused_aggregate=None)
+    print("  parts: " + ", ".join(f"{k} {v:.1f} s" for k, v in times.items()))
+    return dict(counts=counts, parts=parts, micro=micro, times=times)
 
 
 def min_ms(fn, reps: int = 3) -> float:
@@ -3541,10 +3728,10 @@ def main() -> None:
     kernels = timed(2, "kernels against their plain versions", phase_kernels)
     served = timed(3, "serve qwen2.5-3b", phase_serve)
     timed(4, "qwen2.5-3b card against CPU", phase_card_vs_cpu, served["session"])
-    del served["session"]
+    on_host = {"qwen2.5-3b": to_host(served.pop("session").storage, "qwen2.5-3b")}
     served_g = timed(5, "serve recurrentgemma-2b", phase_serve_griffin)
     timed(6, "recurrentgemma-2b card against CPU", phase_griffin_card_vs_cpu, served_g["session"])
-    del served_g["session"]
+    on_host["recurrentgemma-2b"] = to_host(served_g.pop("session").storage, "recurrentgemma-2b")
     torch.cuda.empty_cache()
     trained = timed(7, "train conformer_s", phase_train)
     timed(8, "train card against CPU", phase_train_card_vs_cpu)
@@ -3568,6 +3755,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     scaled = timed(19, "population runtime at full width", phase_scale, trained.pop("warm"),
                    strategies["train"].pop("none"), strategies["train"].pop("topk"))
+    torch.cuda.empty_cache()
+    launched = timed(20, "launch and roofline on the card", phase_launch, on_host,
+                     scaled.pop("packed"))
     print(f"all phases: {time.perf_counter() - t0:.1f} s")
     print(json.dumps(kernel_line(kernels, {"serve": served["report"]["launch_counts"],
                                            "serve_griffin": served_g["report"]["launch_counts"],
@@ -3579,7 +3769,8 @@ def main() -> None:
                                            "noniid": noniid["counts"],
                                            "strategies": strategies["counts"],
                                            "obs": telemetry["counts"],
-                                           "scale": scaled["counts"]})))
+                                           "scale": scaled["counts"],
+                                           "launch": launched["counts"]})))
     print(json.dumps(dict(ok=True, device=dict(platform="gpu", kind=torch.cuda.get_device_name(0),
                                                count=torch.cuda.device_count()))))
 

@@ -1,12 +1,14 @@
 """qwen2.5-3b [dense]: 36L d=2048 16H (GQA kv=2) ff=11008 vocab=151936.
 
 GQA with QKV bias, RoPE, tied embeddings (port of ``repro.configs.qwen2_5_3b``).
+Full attention, so the dry-run skips ``long_500k``.
 """
 
 from repro_torch.models.transformer import TransformerConfig
 
 ID = "qwen2.5-3b"
 FAMILY = "transformer"
+LONG_CONTEXT_OK = False
 
 
 def config() -> TransformerConfig:

@@ -16,6 +16,8 @@ from typing import Optional
 
 import torch
 
+from .common import shard_hint
+
 NEG_INF = -1e30
 
 
@@ -84,6 +86,14 @@ def init_cache(n_layers: int, batch: int, buf_len: int, kv_heads: int, head_dim:
         pos=torch.full((n_layers, batch, buf_len), -1, dtype=torch.int32, device=device),
         length=0,
     )
+
+
+def cache_shard_hint(c: KVCache) -> KVCache:
+    """The reference's cache layout: batch->data; KV heads->tensor when
+    divisible, else cache sequence->model (``common.shard_hint``)."""
+    return KVCache(k=shard_hint(c.k, None, "batch", "kv_seq", "tensor", None),
+                   v=shard_hint(c.v, None, "batch", "kv_seq", "tensor", None),
+                   pos=shard_hint(c.pos, None, "batch", "kv_seq"), length=c.length)
 
 
 def cache_insert(layer_k, layer_v, layer_pos, k_new, v_new, position: int, ring: bool):

@@ -12,16 +12,24 @@ the weight as an f32 tensor or in code form (a ``CompressedVariable``, which
 ``OMCMaterializer`` leaves for the matmul operands a model names) and then
 streams the codes through the ``dequant_matmul`` kernel.
 
-``ParamSpec`` keeps the reference's logical axes as plain data: the port has
-no sharding, but the number of axes a spec describes is what tells stacked
-axes apart (``federated.state.n_stack_axes``).
+``ParamSpec`` keeps the reference's logical axes as plain data: the number
+of axes a spec describes is what tells stacked axes apart
+(``federated.state.n_stack_axes``).  The sharding helpers resolve those axes
+against a mesh as the reference's do (``resolve_spec``: mesh axes tried in
+order, divisibility wins) into the port's own :class:`PartitionSpec` and
+:class:`NamedSharding`.  They say where each leaf *would* live on a mesh
+(``launch/specs.py``, the meta-device dry-run); the port runs on one card,
+with no process group and no ``DTensor``, so :func:`shard_hint` moves
+nothing: outside :class:`activate_mesh` it is the identity, inside it checks
+the hint's rank and returns its tensor.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Optional, Tuple
+import threading
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -31,6 +39,147 @@ from repro_torch.core import prng
 from repro_torch.core.store import is_compressed
 from repro_torch.core.tree import tree_items, tree_map
 from repro_torch.kernels import ops
+
+
+# ---------------------------------------------------------------------------
+# Logical axis rules, the mesh context and layouts
+# ---------------------------------------------------------------------------
+
+# logical axis -> tuple of mesh axis names (tried in order, divisibility wins)
+DEFAULT_RULES: Dict[str, Tuple[str, ...]] = {
+    "batch": ("pod", "data"),
+    "fsdp": ("pod", "data"),  # weight storage shard (ZeRO-3 style)
+    "tensor": ("model",),  # tensor-parallel dim (heads / ffn / vocab)
+    "kv_seq": ("model",),  # decode KV-cache sequence sharding (MQA/GQA)
+    "expert": ("model",),  # expert-parallel dim (only when divisible)
+    "qblk": ("model",),  # train/prefill attention: q-block dim
+    "seq": ("model",),  # sequence-sharded residual stream
+    "dstate": ("model",),  # recurrent state feature dim
+    "replicated": (),
+}
+
+
+class PartitionSpec(tuple):
+    """A leaf's layout: per dimension ``None`` (replicated), a mesh axis
+    name, or a tuple of names (split over their product); dimensions past
+    the end are replicated.  A tuple, as jax's ``PartitionSpec`` is."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+
+def _mesh_axis_sizes(mesh) -> Dict[str, int]:
+    return dict(zip(mesh.axis_names, mesh.devices.shape))
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class NamedSharding:
+    """Where a leaf would live: ``spec`` over ``mesh``'s named axes."""
+
+    mesh: Any
+    spec: PartitionSpec
+
+    def shard_shape(self, global_shape: Sequence[int]) -> Tuple[int, ...]:
+        """The per-device shape of a leaf of ``global_shape``."""
+        sizes = _mesh_axis_sizes(self.mesh)
+        out = []
+        for i, dim in enumerate(global_shape):
+            entry = self.spec[i] if i < len(self.spec) else None
+            axes = () if entry is None else (entry,) if isinstance(entry, str) else entry
+            n = math.prod(sizes[a] for a in axes)
+            if dim % n:
+                raise ValueError(f"dimension {i} of {tuple(global_shape)} does not divide "
+                                 f"over {axes} ({n} devices)")
+            out.append(dim // n)
+        return tuple(out)
+
+
+class _MeshCtx(threading.local):
+    def __init__(self):
+        self.mesh = None
+        self.rules: Dict[str, Tuple[str, ...]] = dict(DEFAULT_RULES)
+
+
+_CTX = _MeshCtx()
+
+
+class activate_mesh:
+    """Context manager: resolve logical-axis hints against ``mesh`` (state
+    per thread).  Outside it every hint is the identity."""
+
+    def __init__(self, mesh, rules: Optional[Dict[str, Tuple[str, ...]]] = None):
+        self.mesh = mesh
+        self.rules = dict(DEFAULT_RULES)
+        if rules:
+            self.rules.update(rules)
+
+    def __enter__(self):
+        self._old = (_CTX.mesh, _CTX.rules)
+        _CTX.mesh, _CTX.rules = self.mesh, self.rules
+        return self.mesh
+
+    def __exit__(self, *exc):
+        _CTX.mesh, _CTX.rules = self._old
+        return False
+
+
+def current_mesh():
+    return _CTX.mesh
+
+
+def resolve_spec(logical: Sequence[Optional[str]], shape: Sequence[int], mesh=None,
+                 rules=None) -> PartitionSpec:
+    """Logical axes -> PartitionSpec: each logical axis takes the mesh axes
+    of its rule in order, each only if it is unused and the dimension
+    divides over the product so far; the reference's rule."""
+    mesh = mesh if mesh is not None else _CTX.mesh
+    rules = rules if rules is not None else _CTX.rules
+    if mesh is None:
+        return PartitionSpec()
+    sizes = _mesh_axis_sizes(mesh)
+    out, used = [], set()
+    for dim, name in zip(shape, logical):
+        if name is None or name == "replicated":
+            out.append(None)
+            continue
+        axes, prod = [], 1
+        for ax in rules.get(name, ()):
+            if ax in used or ax not in sizes:
+                continue
+            if dim % (prod * sizes[ax]) == 0:
+                axes.append(ax)
+                prod *= sizes[ax]
+        used.update(axes)
+        out.append(tuple(axes) if len(axes) > 1 else (axes[0] if axes else None))
+    return PartitionSpec(*out)
+
+
+def shard_hint(x, *logical: Optional[str]):
+    """The reference's ``with_sharding_constraint`` by logical axes.  One
+    card holds every leaf whole, so it returns ``x``; under an active mesh
+    it first checks that the hint names one axis per dimension."""
+    if _CTX.mesh is None or not hasattr(x, "shape"):
+        return x
+    if len(logical) != x.ndim:
+        raise ValueError(f"shard_hint: {len(logical)} logical axes {logical} for a "
+                         f"{x.ndim}-d tensor of shape {tuple(x.shape)}")
+    return x
+
+
+def named_sharding(logical: Sequence[Optional[str]], shape, mesh=None) -> NamedSharding:
+    mesh = mesh if mesh is not None else _CTX.mesh
+    return NamedSharding(mesh, resolve_spec(logical, shape, mesh))
+
+
+def _pad_spec(axes: Tuple[Optional[str], ...], ndim: int) -> Tuple[Optional[str], ...]:
+    """Right-align a spec to the leaf rank (a layer slice drops the L dim)."""
+    axes = tuple(axes)
+    if len(axes) >= ndim:
+        return axes[len(axes) - ndim:]
+    return (None,) * (ndim - len(axes)) + axes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,6 +197,10 @@ def wspec(*axes: Optional[str]) -> ParamSpec:
 
 
 RSPEC = ParamSpec(storage=("replicated",), gathered=("replicated",))  # any rank
+
+
+def spec_leaf_for(path_unused, leaf_spec: ParamSpec, leaf) -> ParamSpec:
+    return leaf_spec
 
 
 class Materializer:

@@ -46,6 +46,7 @@ from .common import (
     init_layers,
     linear,
     rms_norm,
+    shard_hint,
     stack_entry,
     wspec,
 )
@@ -341,6 +342,24 @@ def init_decode_state(cfg: GriffinConfig, batch: int, max_len: int, dtype=torch.
     return state
 
 
+def state_shard_hint(state):
+    """The reference's decode-state layout (``common.shard_hint``): batch->
+    data, the recurrent feature dim->dstate, the ring's slots->kv_seq."""
+    out = dict(state)
+    out["rec"] = dict(
+        conv=shard_hint(state["rec"]["conv"], None, None, "batch", None, "dstate"),
+        h=shard_hint(state["rec"]["h"], None, None, "batch", "dstate"))
+    out["att"] = dict(
+        k=shard_hint(state["att"]["k"], None, "batch", "kv_seq", None, None),
+        v=shard_hint(state["att"]["v"], None, "batch", "kv_seq", None, None),
+        pos=shard_hint(state["att"]["pos"], None, "batch", "kv_seq"))
+    if "extra_rec" in state:
+        out["extra_rec"] = dict(
+            conv=shard_hint(state["extra_rec"]["conv"], None, "batch", None, "dstate"),
+            h=shard_hint(state["extra_rec"]["h"], None, "batch", "dstate"))
+    return out
+
+
 def _rec_stack(cfg: GriffinConfig, stack_p, stack_st, x, mat: Materializer):
     """Run a stack of recurrent blocks (leaves ``[n, ...]``) from their
     carried state ``{conv: [n, ...], h: [n, ...]}``; return (x, new state)."""
@@ -393,7 +412,7 @@ def _run(cfg: GriffinConfig, params, state, tokens, mat: Materializer, start_pos
         x, new_state["extra_rec"] = _rec_stack(cfg, params["extra_rec"], state["extra_rec"], x,
                                                mat)
     x = rms_norm(x, mat.leaf(params["final_norm"]), cfg.norm_eps)
-    return new_state, x[:, -1:] @ _head_weight(cfg, params, mat)
+    return state_shard_hint(new_state), x[:, -1:] @ _head_weight(cfg, params, mat)
 
 
 def _head_weight(cfg: GriffinConfig, params, mat: Materializer) -> torch.Tensor:

@@ -74,6 +74,16 @@ class TransformerConfig:
     def kv_dim(self) -> int:
         return self.n_kv_heads * self.hd
 
+    def param_count(self) -> int:
+        """The reference's count (``transformer.py:92-98``): the init's leaf
+        sizes summed, a tied head counted once."""
+        d, f, v = self.d_model, self.d_ff, self.vocab
+        per_layer = d * (self.q_dim + 2 * self.kv_dim) + self.q_dim * d + 3 * d * f + 2 * d
+        if self.qkv_bias:
+            per_layer += self.q_dim + 2 * self.kv_dim
+        emb = v * d * (1 if self.tie_embeddings else 2)
+        return self.n_layers * per_layer + emb + d
+
 
 # ---------------------------------------------------------------------------
 # init / specs
@@ -249,7 +259,7 @@ def prefill(cfg: TransformerConfig, params, batch, mat: Materializer,
         new.k, new.v, new.pos = (torch.roll(a, roll, dims=2) for a in (new.k, new.v, new.pos))
     new.length = s
     x = rms_norm(x, mat.leaf(params["final_norm"]), cfg.norm_eps)
-    return new, x[:, -1:] @ _head_weight(cfg, params, mat)
+    return attn.cache_shard_hint(new), x[:, -1:] @ _head_weight(cfg, params, mat)
 
 
 def decode_step(cfg: TransformerConfig, params, cache: attn.KVCache, tokens: torch.Tensor,
@@ -278,4 +288,5 @@ def decode_step(cfg: TransformerConfig, params, cache: attn.KVCache, tokens: tor
         x = x + swiglu(h, w["w1"], w["w3"], w["w2"])
         del w
     x = rms_norm(x, mat.leaf(params["final_norm"]), cfg.norm_eps)
-    return dataclasses.replace(cache, length=position + 1), x @ _head_weight(cfg, params, mat)
+    return (attn.cache_shard_hint(dataclasses.replace(cache, length=position + 1)),
+            x @ _head_weight(cfg, params, mat))

@@ -6,9 +6,9 @@ round counters, trace event counters) lives here as one
 :class:`PopulationStore`, partitioned into contiguous client-id shards by a
 :class:`ShardLayout`.  The layout is *logical*: it says which shard owns
 which client rows, whatever the devices.  On one card it drives the
-host-side shard grouping of :mod:`repro_torch.scale.hierarchy`; placing
-rows across a population mesh (:meth:`PopulationStore.device_ef`) waits
-for ``launch/specs`` (ROADMAP A9 item 2).
+host-side shard grouping of :mod:`repro_torch.scale.hierarchy`;
+:meth:`PopulationStore.device_ef` places the rows on a population mesh,
+beside the layout ``launch.specs.population_sharding`` gives them.
 
 State at rest lives on the host, as numpy arrays, as in the reference:
 counters as int64, residual rows either f32 (``ef_fmt=None``, bit-exact
@@ -216,25 +216,25 @@ class PopulationStore:
                 var.b = np.zeros((n,), np.float32)
             self._ef[name] = var
 
-    def _put(self, arr: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(arr).to(self.device)
-
     def gather_ef(self, client_ids) -> Dict[str, torch.Tensor]:
         """Decoded residual rows ``{name: f32[C, *shape]}`` of a chunk, on the
         store's device."""
+        return self._gather(client_ids, self.device)
+
+    def _gather(self, client_ids, device: torch.device) -> Dict[str, torch.Tensor]:
         ids = np.asarray(client_ids, np.int64)
         out = {}
         for name, var in self._ef.items():
             if var.raw is not None:
                 # each row copied from its place at rest, no host-side gather
-                rows = torch.empty((ids.size,) + var.shape, dtype=torch.float32,
-                                   device=self.device)
+                rows = torch.empty((ids.size,) + var.shape, dtype=torch.float32, device=device)
                 for j, i in enumerate(ids.tolist()):
                     rows[j].copy_(torch.from_numpy(var.raw[i]))
                 out[name] = rows
             else:
-                out[name] = decode_rows(self._put(var.words[ids]), self._put(var.s[ids]),
-                                        self._put(var.b[ids]), self.ef_fmt, var.shape)
+                out[name] = decode_rows(*(torch.from_numpy(a[ids]).to(device)
+                                          for a in (var.words, var.s, var.b)),
+                                        self.ef_fmt, var.shape)
         return out
 
     def scatter_ef(self, client_ids, rows: Dict[str, torch.Tensor], mask=None) -> None:
@@ -262,12 +262,18 @@ class PopulationStore:
                 var.s[ids] = s.cpu().numpy()
                 var.b[ids] = b.cpu().numpy()
 
-    def device_ef(self, mesh, client_ids=None) -> Dict[str, torch.Tensor]:
-        """Residual rows placed on a population mesh: waits for the port of
-        ``launch/specs`` (its ``population_sharding``)."""
-        raise NotImplementedError("device_ef places rows with launch/specs' "
-                                  "population_sharding, not ported yet (ROADMAP A9 item 2); "
-                                  "gather_ef gives the rows on the store's device")
+    def device_ef(self, mesh, client_ids=None) -> Dict[str, Any]:
+        """Residual rows placed on a population mesh (all clients by
+        default): gathered onto the mesh's first device (a packed store
+        decodes them there, ``unpack`` + ``dequantize``), each beside its
+        ``launch.specs.population_sharding`` (``clients`` axis partitioned;
+        one card replicates) as a ``launch.specs.Sharded``."""
+        from repro_torch.launch import specs as launch_specs
+
+        ids = np.arange(self.layout.num_clients) if client_ids is None else client_ids
+        rows = self._gather(ids, mesh.devices.flat[0])
+        return {k: launch_specs.Sharded(v, launch_specs.population_sharding(mesh, v.ndim))
+                for k, v in rows.items()}
 
     # -- accounting / checkpointing -----------------------------------------
 

@@ -1,5 +1,5 @@
-"""The package-level names of ``core``, ``api``, ``data``, ``obs`` and
-``scale``: the port's against the reference's.
+"""The package-level names of ``core``, ``api``, ``data``, ``obs``,
+``scale`` and ``roofline``: the port's against the reference's.
 
 Each package's public names (its ``__all__``; the reference's ``api`` has
 none, so its public non-module names) are compared.  The port must define
@@ -7,6 +7,8 @@ every name it exports, export none the reference lacks, and lack none:
 ``core`` has all of the reference's since the compression strategies came
 (ROADMAP A7), ``obs`` its seven since telemetry came (ROADMAP A11), ``scale``
 its twelve since the sharded population runtime came (ROADMAP A9).
+``roofline`` lacks ``analyze_compiled`` and ``collective_bytes``, which
+read XLA's HLO text (ROADMAP C25).
 """
 
 import importlib
@@ -23,7 +25,9 @@ def _public(mod):
 
 
 @pytest.mark.parametrize("pkg, missing", [("core", set()), ("api", set()), ("data", set()),
-                                          ("obs", set()), ("scale", set())])
+                                          ("obs", set()), ("scale", set()),
+                                          ("roofline", {"analyze_compiled",
+                                                        "collective_bytes"})])
 def test_package_names_match_the_reference(pkg, missing):
     ref = importlib.import_module(f"repro.{pkg}")
     port = importlib.import_module(f"repro_torch.{pkg}")
@@ -49,3 +53,11 @@ def test_package_name_counts():
     import repro_torch.scale
 
     assert len(repro.scale.__all__) == 12 and len(repro_torch.scale.__all__) == 12
+
+
+def test_assigned_archs_are_the_references():
+    import repro.configs.registry
+    import repro_torch.configs.registry
+
+    assert repro_torch.configs.registry.ASSIGNED == repro.configs.registry.ASSIGNED
+    assert set(repro_torch.configs.registry.list_archs()) <= set(repro.configs.registry.list_archs())

@@ -191,8 +191,13 @@ def test_store_rows_match_reference(init, fmt):
     js.note_round([1, 2, 4], alive=[True, False, True])
     assert np.array_equal(ts.round_counters, js.round_counters)
     assert np.array_equal(ts.event_counters, js.event_counters)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9 item 2"):
-        ts.device_ef(None)
+    # device_ef: the same rows placed on a population mesh (one device replicates)
+    from repro_torch.launch.mesh import make_population_mesh
+
+    placed = ts.device_ef(make_population_mesh(num_shards=2, device="cpu"), ids)
+    for name, got in ts.gather_ef(ids).items():
+        assert placed[name].sharding.spec == ()
+        assert torch.equal(placed[name].value.view(torch.int32), got.view(torch.int32)), name
 
 
 def test_fresh_packed_rows_decode_to_zero_and_views_count(init):
