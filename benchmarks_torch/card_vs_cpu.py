@@ -6,9 +6,10 @@
 Builds each model's storage at full width as chip_smoke's serve phases do
 (random weights from seed 0 on the card, compressed to S1E3M7; the wire
 roundtrip they add gives bit-identical storage), cuts it as chip_smoke
-does (qwen2.5-3b to 2 layers, recurrentgemma-2b to its first super block,
+does (qwen2.5-3b to 1 layer, recurrentgemma-2b to its first super block,
 3 layers, both to the first 32,768 rows of the tied embedding) and runs ``chip_smoke.card_vs_cpu``: prefill and 1 decode step
-twice on the card (the same bits both times) and once on the CPU, the
+twice on the card (the same bits both times) and once on the CPU (over
+the tree decoded once by the plain version), the
 largest logit difference within 1e-3, and the sha256 of
 each step's logits on both sides.  The environment phase prints the card,
 the CPU's instruction set as ATen dispatches it and the CPU threads, so

@@ -41,7 +41,10 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
      prefill [128, 2048]x[2048, 11008], and the prefill products whose tile
      splits K over a cluster: qwen's [128, 2048]x[2048, 2048], [128, 2048]x
      [2048, 256] and [128, 11008]x[11008, 2048], griffin's [128, 2560]x
-     [2560, 256] and [128, 7680]x[7680, 2560]), odd tails [3, 37]x[37, 53]
+     [2560, 256] and [128, 7680]x[7680, 2560]; the zoo's: mixtral's experts
+     [8, 4096]x[4096, 14336], [8, 14336]x[14336, 4096] and [40, 4096]x[4096,
+     14336], internvl2's [4, 896]x[896, 128] and [4, 896]x[896, 4864], h2o's
+     [4, 3840]x[3840, 960], qwen1.5-110b's [4, 8192]x[8192, 49152]), odd tails [3, 37]x[37, 53]
      in u8 and u32, and per-entry (s, b) of a doubly stacked leaf, all with
      b != 0: elementwise within 2e-5 * (|A| @ |s*dec(W) + b|), the same bits
      from two launches with a launch on an all-NaN A between them, the
@@ -75,11 +78,13 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
      Launch counters are zeroed just before and read just after: 252
      ``dequant_matmul`` and 2 ``dequantize`` launches per forward pass, every
      serve kernel launched, no plain version run.
-  4. Card against CPU at full width: the served storage tree cut to 2 layers
+  4. Card against CPU at full width: the served storage tree cut to 1 layer
      and to the first 32,768 rows of the tied embedding's codes (its
      per-variable (s, b) unchanged, prompts drawn below 32,768), prefill and
      1 decode step on the card (kernels), twice (the same bits both times),
-     and on the CPU (plain versions); the largest logit difference must be
+     and on the CPU over the tree decoded once by the plain version (the
+     same bits as the plain ``dequant_matmul``, which decodes the weight at
+     every forward pass and multiplies); the largest logit difference must be
      <= 1e-3.  The CPU side decodes the tied head in plain PyTorch once a
      forward pass, which at 151,936 rows was most of the phase: phase 3
      still serves the full vocabulary on the card, and phase 2 holds B1, B2
@@ -108,7 +113,7 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
      run: ``fused_aggregate`` 13 launches per fused round, ``quantize`` in the
      PVT-off run, ``quantize_stats`` and ``dequantize`` in every run, no
      plain version anywhere.
-  8. Card against CPU for training: the same configuration cut to 2 layers
+  8. Card against CPU for training: the same configuration cut to 1 layer
      at full width, cohort 4, 1 fused round of 1 local step, on the card
      (kernels) and on the CPU (plain versions): ledgers equal, trees within
      the gate of phase 7.
@@ -147,7 +152,7 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
      memory, ``state_bytes_report``, the checkpoint's bytes on disk against
      f32, and ``benchmarks_torch/memory_measured.py``'s table.
  12. Card against CPU for the round: ``make_round_fn`` with ``fedavg(1.0)``
-     on conformer_s cut to 2 layers at full width (S1E4M14, a frame batch
+     on conformer_s cut to 1 layer at full width (S1E4M14, a frame batch
      8 x 48; 1 round) and on qwen2.5-3b cut to 1 layer at full width (d
      2048, tied head) and to the LM batch's vocabulary of 4096 (S1E3M7, a
      4 x 32 batch of the non-IID LM task, ``make_lm_task(vocab=4096,
@@ -184,8 +189,8 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
      device memory, completed updates per virtual second, ``stale_fraction``
      and ``dropped_fraction``, the checkpoint's bytes and its save and
      restore times.
- 14. Card against CPU for the async runtime: the straggler run cut to 2
-     layers at full width, 16 clients, ``buffer_goal`` 4, 2 fused flushes,
+ 14. Card against CPU for the async runtime: the straggler run cut to 1
+     layer at full width, 16 clients, ``buffer_goal`` 4, 2 fused flushes,
      on the card (kernels) and on the CPU (plain versions): the same
      history rows but the loss, losses within 1e-3, the same launches, trees
      within phase 7's gate.
@@ -223,7 +228,7 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
  16. The non-IID path at full width (``data.partition``): phase 7's model,
      task, cohort and format, through ``engine.run_training_vectorized``
      with ``fused_agg=True`` over ``make_partitioned_batch_fn``.
-     ``DirichletPartition(alpha=0.1)`` for 2 rounds of 2 local steps: losses
+     ``DirichletPartition(alpha=0.1)`` for 1 round of 2 local steps: losses
      finite, 13 ``fused_aggregate`` launches a round, ``quantize_stats`` and
      ``dequantize`` in every round (counts read after each round), no plain
      version; the mean over the sampled clients of each client's largest
@@ -275,10 +280,10 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
      checkpoint resumed to the same bits, card against CPU within the gates.
  18. Telemetry (``repro_torch.obs``) and the sessions' strategy uploads at
      full width, under deterministic algorithms.  The engine at phase 7's
-     configuration, unfused and fused: 2 rounds with ``obs=None``, then 2
+     configuration, unfused and fused: 1 round with ``obs=None``, then 1
      from the same state with a live ``Obs`` writing into ``build/obs/``:
-     storage the same bits, history and ledger the same bytes, two
-     ``round`` records with a finite ``update_norm``, ``qerr_norm`` and the
+     storage the same bits, history and ledger the same bytes, one
+     ``round`` record with a finite ``update_norm``, ``qerr_norm`` and the
      13 ``qerr/*`` only unfused; B1 and B5 launches unchanged and B2 up by
      exactly the bundle's two decodes (old and new storage) of each
      compressed leaf a round.  The summed ``round`` wall spans are printed
@@ -330,7 +335,10 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
      state and token batch put back on the card, exactly, with
      ``memory_allocated`` around placing them printed beside; the meta
      trace of one decode step calls each kernel as often as a forward pass
-     launched it in phase 3 or 5.  (b) ``benchmarks_torch/kernels_micro.py``
+     launched it in phase 3 or 5.  The same for mixtral-8x7b at phase 21
+     (a)'s depth (``--set n_layers=4``), against phase 21 (a)'s storage,
+     still on the card (phase 20 runs after phase 21): B6 112 and B2 6 a
+     decode step.  (b) ``benchmarks_torch/kernels_micro.py``
      in card mode, in process: B3, B2 and B6 at the reference's codec sizes,
      B4 at six widths and B5 at cohort 8 in S1E3M7 and S1E4M14, each row's
      ms (CUDA events, L2 flushed), ``bound_ms`` and moved over bound, every
@@ -338,10 +346,38 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
      packed S1E3M7 store: ``make_population_mesh(num_shards=4)`` clamps to
      the one card, and every row is the same bits as ``gather_ef``'s.
      Counters are zeroed around (b) and (c) (not (c)'s comparison).
+ 21. The decoder-only zoo at full width (run before phase 20, which reads
+     its mixtral storage): ``serve.run`` on each arch at full width and the
+     depth ``ZOO_DEPTH`` gives with its reason (printed), S1E3M7, batch 4,
+     prompt 32: (a) mixtral-8x7b (4 of 32 layers, 8 experts top-2) with the
+     wire roundtrip (payload ratio <= 0.35, swap bit-identical), 16 tokens;
+     (b) mixtral cut to 1 layer, prompt 8, 2 decode steps, on the card twice
+     (the same bits) and on the CPU over the codes decoded by the plain
+     version: routing flips counted, each a near-tie (k-th and (k+1)-th
+     router probabilities within ``ROUTE_GAP`` relative on both sides, C26),
+     capacity flips counted, logits within 1e-3 on the rows that never
+     flipped; then ``ep_partitions=2`` on the card over the same codes
+     resliced, within ``EP_GAP`` (1e-4) of each step's largest logit of
+     ``ep_partitions=1``'s (f32 reassociation of w2's K = 14,336 sum); (c) dbrx-132b (2 of 40
+     layers, 16 experts top-4), 16 tokens; (d) internvl2-1b at full depth
+     with 1,024 patches, 16 tokens (the reference's cache sizing, C28), then
+     prefill(n) + decode against prefill(n + 1) within 5e-4 with a cache
+     that holds the whole stream; (e) h2o-danube-3-4b at full depth, 16
+     tokens (no wire roundtrip: (a) runs the wire), then at 2 layers, batch 1, a prompt of 4,128
+     tokens through its 4,096-slot ring, prefill(n) + decode against
+     prefill(n + 1) within 5e-4; (f) mistral-nemo-12b (2 of 40 layers) and
+     qwen1.5-110b (1 of 80), 4 tokens.  Counters are zeroed around each
+     serve: ``dequant_matmul`` and ``dequantize`` launch exactly
+     ``zoo_formula``'s count a forward pass (a MoE layer: 4 + 3 per stored
+     expert, and its router decoded), which a CPU dry run of the smoke
+     widths at 1 and 2 layers predicts, scaled to the served depth; no plain
+     version.  Prints each part's init, prefill and decode ms a token and
+     peak memory, and its seconds.
 
 Each phase's wall seconds are printed on a line of their own.  It then
 prints one JSON line describing each kernel (``launches_by_path`` has the
-main paths of phases 3, 5, 7, 9, 11, 13, 15, 16, 17, 18, 19 and 20) and, last, the line
+main paths of phases 3, 5, 7, 9, 11, 13, 15, 16, 17, 18, 19, 20 and 21) and, last, the
+line
 ``{"ok": true, "device": {...}}``.  f32 matmuls run in full f32: TF32 is
 switched off for matmuls and cuDNN.  Exits non-zero without a CUDA device.
 """
@@ -373,10 +409,11 @@ import torch  # noqa: E402
 from repro_torch import compress, scale  # noqa: E402
 from repro_torch.api import codecs, demo, session  # noqa: E402
 from repro_torch.api.session import FLClient, FLSession, ServeSession  # noqa: E402
-from repro_torch.configs import conformer_s, qwen2_5_3b, recurrentgemma_2b  # noqa: E402
+from repro_torch.configs import (conformer_s, mixtral_8x7b, qwen2_5_3b,  # noqa: E402
+                                 recurrentgemma_2b)
 from repro_torch.core import omc as omc_lib  # noqa: E402
 from repro_torch.core import packing, prng  # noqa: E402
-from repro_torch.core.formats import FloatFormat, narrow, widen  # noqa: E402
+from repro_torch.core.formats import SIGNED_TWIN, FloatFormat, narrow, widen  # noqa: E402
 from repro_torch.core.omc import OMCConfig  # noqa: E402
 from repro_torch.core.policy import QuantizePolicy  # noqa: E402
 from repro_torch.core.store import (bit_equal, compress_variable, decompress_tree,  # noqa: E402
@@ -388,7 +425,7 @@ from repro_torch.data.partition import (DirichletPartition, DomainPartition,  # 
 from repro_torch.data.synthetic import make_frame_task, make_lm_task  # noqa: E402
 from repro_torch.federated import accounting, async_engine, engine, simulate  # noqa: E402
 from repro_torch.core.partial import ppq_masks_batch  # noqa: E402
-from repro_torch.federated import cohort, traces  # noqa: E402
+from repro_torch.federated import cohort, materialize, traces  # noqa: E402
 from repro_torch.federated.cohort import CohortPlan  # noqa: E402
 from repro_torch import checkpoint as ck  # noqa: E402
 from repro_torch.federated.round import make_round_fn  # noqa: E402
@@ -404,7 +441,9 @@ from repro_torch.kernels import dequant_matmul as dm  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import quantize as qk  # noqa: E402
 from repro_torch.launch import serve, train  # noqa: E402
-from repro_torch.models import conformer, griffin, transformer  # noqa: E402
+from repro_torch.configs.registry import get_arch  # noqa: E402
+from repro_torch.models import conformer, griffin, moe, transformer  # noqa: E402
+from repro_torch.models.registry import get_family  # noqa: E402
 from repro_torch.obs import Obs  # noqa: E402
 from repro_torch.obs import report as obs_report  # noqa: E402
 from repro_torch.optim import fedavg  # noqa: E402
@@ -430,6 +469,14 @@ DM_PREFILL_SPLIT_K = [(PREFILL, CFG.d_model, CFG.q_dim), (PREFILL, CFG.d_model, 
                       (PREFILL, CFG.d_ff, CFG.d_model),
                       (PREFILL, GCFG.d_model, GCFG.n_kv_heads * GCFG.hd),
                       (PREFILL, GCFG.d_ff, GCFG.d_model)]
+# phase 21's products at the zoo's widths: mixtral's experts at decode (M = 8,
+# the capacity of a batch of 4) and prefill (M = 40 for 4 x 32), internvl2's
+# wk (N = 128) and w1 (K = 896), h2o's wk (head_dim 120: N = 960) and
+# qwen1.5-110b's w1 (K = 8192, N = 49,152)
+MIXTRAL = mixtral_8x7b.config()
+DM_ZOO = [(8, MIXTRAL.d_model, MIXTRAL.d_ff), (8, MIXTRAL.d_ff, MIXTRAL.d_model),
+          (40, MIXTRAL.d_model, MIXTRAL.d_ff), (4, 896, 128), (4, 896, 4864), (4, 3840, 960),
+          (4, 8192, 49152)]
 TRAIN_CFG = conformer_s.config()
 TRAIN_LEAF = (TRAIN_CFG.n_layers, TRAIN_CFG.d_model, TRAIN_CFG.d_ff)  # stacked w1 / w2ᵀ
 COHORT = 8
@@ -480,11 +527,11 @@ SESSION_CUT_LAYERS = 1
 DEMO_ROUNDS = 1
 SESSION_ROUNDS, SESSION_BUFFER, SESSION_DECAY = 2, 4, 0.5
 SESSION_STEPS, SESSION_LR = 2, 0.05  # each client's local SGD
-NONIID_ROUNDS = 2  # phase 16's Dirichlet run
+NONIID_ROUNDS = 1  # phase 16's Dirichlet run (2 before phase 21 came)
 CUT_VOCAB = 32_768  # phases 4 and 6: the tied heads' first rows, card against CPU
 LM_VOCAB = 4096  # phase 12's non-IID LM batch, and its qwen round's vocabulary
 OBS_DIR = ROOT / "build" / "obs"  # phase 18's JSONL and Perfetto files
-OBS_ROUNDS = 2  # phase 18: engine rounds a run, obs off and on
+OBS_ROUNDS = 1  # phase 18: engine rounds a run, obs off and on (2 before phase 21 came)
 OBS_SESSION_STRATEGY = dict(name="topk", density=0.1, value_fmt=FMT)  # phase 18's uploads
 OBS_ASYNC_CLIENTS, OBS_ASYNC_BUFFER = 4, 2  # phase 18's async run (8 and 4 took 4.9 s)
 
@@ -1103,7 +1150,7 @@ def phase_kernels() -> dict:
         results["dequant_matmul"].append(check_dequant_matmul((3, 37, 53), fmt, seed=1))
     results["dequant_matmul"].append(check_dequant_matmul((4, 256, 384), FMT, seed=2,
                                                           entry=(2, 2)))
-    for mkn in DM_SERVE + DM_PREFILL_SPLIT_K:
+    for mkn in DM_SERVE + DM_PREFILL_SPLIT_K + DM_ZOO:
         r = check_dequant_matmul(mkn, FMT, timer, seed=sum(mkn))
         require(mkn not in DM_PREFILL_SPLIT_K or r["grid"][1] > 1,
                 f"dequant_matmul {mkn}: K is not split over a cluster ({r['grid']})")
@@ -1142,11 +1189,12 @@ def phase_kernels() -> dict:
 # ---------------------------------------------------------------------------
 
 
-def require_per_forward(counts: dict, run: str, forwards: int, per_forward: dict) -> None:
-    """Exact launches of each op for ``forwards`` forward passes, every serve
-    kernel launched, and no plain version run."""
+def require_per_forward(counts: dict, run: str, forwards: int, per_forward: dict,
+                        kernels=SERVE_KERNELS) -> None:
+    """Exact launches of each op for ``forwards`` forward passes, every one
+    of ``kernels`` launched, and no plain version run."""
     require(not any(k.endswith(".ref") for k in counts), f"{run}: a plain version ran: {counts}")
-    for op in SERVE_KERNELS:
+    for op in kernels:
         require(counts.get(f"{op}.cuda", 0) > 0, f"{run}: {op} kernel never launched")
     for op, n in per_forward.items():
         got = counts.get(f"{op}.cuda", 0)
@@ -1154,19 +1202,25 @@ def require_per_forward(counts: dict, run: str, forwards: int, per_forward: dict
                 f"passes, expected {n} per pass: {counts}")
 
 
-def serve_full_width(arch: str, more_batches: int) -> dict:
-    """``serve.run`` at full width with the wire roundtrip, batch 4, prompt 32,
-    16 new tokens, then ``more_batches`` request batches through
-    ``ServeSession.generate``; counters zeroed just before, read just after."""
+def serve_full_width(arch: str, more_batches: int, *, layers=None, roundtrip: bool = True,
+                     gen: int = 16) -> dict:
+    """``serve.run`` at full width (the first ``layers`` layers where given)
+    with the wire roundtrip, batch 4, prompt 32, ``gen`` new tokens, then
+    ``more_batches`` request batches through ``ServeSession.generate``;
+    counters zeroed just before, read just after."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
-    report = serve.run(serve.parse_args([
-        "--arch", arch, "--fmt", FMT.name, "--wire-roundtrip", "--batch", "4",
-        "--prompt-len", "32", "--gen", "16", "--quiet"]))
+    report = serve.run(serve.parse_args(
+        ["--arch", arch, "--fmt", FMT.name, "--batch", "4", "--prompt-len", "32", "--gen",
+         str(gen), "--quiet"] + (["--wire-roundtrip"] if roundtrip else [])
+        + (["--layers", str(layers)] if layers else [])))
     sess = report.pop("session")
-    require(report["swap_bit_identical"], f"{arch}: hot-swapped tree differs from the one encoded")
-    require(report["payload_ratio"] <= 0.35, f"{arch}: payload ratio {report['payload_ratio']}")
+    if roundtrip:
+        require(report["swap_bit_identical"],
+                f"{arch}: hot-swapped tree differs from the one encoded")
+        require(report["payload_ratio"] <= 0.35,
+                f"{arch}: payload ratio {report['payload_ratio']}")
     vocab = sess.cfg.vocab
     g = torch.Generator(device="cuda").manual_seed(1)
     t0 = time.perf_counter()
@@ -1177,14 +1231,15 @@ def serve_full_width(arch: str, more_batches: int) -> dict:
                 f"{arch}: generate returned bad tokens")
     torch.cuda.synchronize()
     more_ms = (time.perf_counter() - t0) * 1e3
-    report.update(forward_passes=1 + 16 + 16 * more_batches, more_batches_ms=more_ms,
+    report.update(forward_passes=1 + gen + 16 * more_batches, more_batches_ms=more_ms,
                   max_memory_allocated=torch.cuda.max_memory_allocated(),
                   launch_counts=ops.launch_counts(), serve_stats=sess.serve_stats())
     report.pop("tokens")
-    for k in ("num_params", "init_ms", "payload_bytes", "fp32_bytes", "payload_ratio",
-              "roundtrip_ms", "prefill_ms", "decode_ms_per_token", "tok_per_s", "more_batches_ms",
-              "max_memory_allocated", "forward_passes", "launch_counts"):
-        print(f"  {arch} {k}: {report[k]}")
+    for k in ("n_layers", "num_params", "init_ms", "payload_bytes", "fp32_bytes",
+              "payload_ratio", "roundtrip_ms", "prefill_ms", "decode_ms_per_token", "tok_per_s",
+              "more_batches_ms", "max_memory_allocated", "forward_passes", "launch_counts"):
+        if k in report:
+            print(f"  {arch} {k}: {report[k]}")
     return dict(report=report, session=sess)
 
 
@@ -1207,10 +1262,12 @@ def phase_serve_griffin() -> dict:
 
 def card_vs_cpu(run: str, family, cfg, cut, decode_steps: int = 2) -> float:
     """Prefill and ``decode_steps`` decode steps of ``cut`` on the card
-    (kernels) and on the CPU (plain versions); the largest logit difference
-    must be <= 1e-3."""
+    (kernels) and on the CPU over ``cut`` decoded once as the plain version
+    decodes (:func:`plain_decoded`): each step's logits are the plain path's
+    bits, without decoding every weight again at every step.  The largest
+    logit difference must be <= 1e-3."""
     gpu = ServeSession(family, cfg, cut)
-    cpu = ServeSession(family, cfg, tree_map(lambda x: x.to("cpu"), cut))
+    cpu = ServeSession(family, cfg, plain_decoded(tree_map(lambda x: x.to("cpu"), cut)))
     g = torch.Generator(device="cuda").manual_seed(2)
     toks = torch.randint(0, cfg.vocab, (4, 32), generator=g, device="cuda")
 
@@ -1239,6 +1296,32 @@ def card_vs_cpu(run: str, family, cfg, cut, decode_steps: int = 2) -> float:
     return worst
 
 
+def plain_decoded(tree):
+    """A storage tree on the host with each compressed leaf decoded by the
+    plain version, bit for bit: ``ref_dequantize`` of every code of the
+    format as a table, each leaf's codes gathered from it, then its affine
+    (``s·x + b``, multiply then add, as the plain version applies it).  A
+    slice of each leaf is held to ``ref_dequantize`` itself.  The plain
+    ``dequant_matmul`` decodes its weight this way and multiplies, so a
+    forward pass over this tree gives the plain path's bits; decoding
+    through the table takes seconds where the plain decode's int64 bit math
+    took minutes at mixtral's width."""
+
+    def leaf(v):
+        if not is_compressed(v):
+            return v
+        every = narrow(torch.arange(1 << v.fmt.bits), v.codes.dtype)
+        table = ref.ref_dequantize(every, v.fmt)
+        out = table[widen(v.codes)] * v.s + v.b
+        cut = v.codes[..., :8]
+        require(bit_equal(out[..., :8], ref.ref_dequantize(cut, v.fmt, v.s, v.b)),
+                f"the table decode of a {v.fmt.name} leaf {tuple(v.codes.shape)} is not the "
+                f"plain version's")
+        return out
+
+    return tree_map(leaf, tree)
+
+
 def digest(x: torch.Tensor) -> str:
     """The first 12 hex digits of the sha256 of a tensor's bytes."""
     return hashlib.sha256(x.contiguous().numpy().tobytes()).hexdigest()[:12]
@@ -1255,15 +1338,17 @@ def vocab_cut(embed, rows: int = CUT_VOCAB):
 def phase_card_vs_cpu(sess: ServeSession) -> float:
     st = sess.storage
     cut = dict(embed=vocab_cut(st["embed"]), final_norm=st["final_norm"],
-               blocks={k: v[:2] for k, v in st["blocks"].items()})
+               blocks={k: v[:1] for k, v in st["blocks"].items()})
     # one decode step on a vocabulary cut (the first 32,768 rows of the tied
     # head; prompts drawn below it): the CPU side decodes the tied head in
     # plain PyTorch once a forward pass, and at 151,936 rows that was the
     # phase's cost.  The full vocabulary is still served on the card in
     # phase 3, and phase 2 holds B2 (and B1, B4) against the plain versions
     # on the full [151936, 2048] head
-    return card_vs_cpu(f"qwen2.5-3b, 2 layers, vocab {CUT_VOCAB:,}", transformer,
-                       dataclasses.replace(CFG, n_layers=2, vocab=CUT_VOCAB), cut,
+    # one layer: a second ran the same block's code again on the CPU, and
+    # phase 3 serves all 36 on the card
+    return card_vs_cpu(f"qwen2.5-3b, 1 layer, vocab {CUT_VOCAB:,}", transformer,
+                       dataclasses.replace(CFG, n_layers=1, vocab=CUT_VOCAB), cut,
                        decode_steps=1)
 
 
@@ -1406,7 +1491,7 @@ def phase_train() -> dict:
 
 
 def phase_train_card_vs_cpu() -> tuple:
-    cfg = dataclasses.replace(TRAIN_CFG, n_layers=2)
+    cfg = dataclasses.replace(TRAIN_CFG, n_layers=1)  # phase 7 trains all 17 on the card
     omc = OMCConfig.parse(FMT.name)
     sim = simulate.SimConfig(local_steps=1, client_lr=0.1)
     spec = engine.CohortSpec(CohortPlan(num_clients=16, cohort_size=4, failure_rate=0.25))
@@ -1421,7 +1506,7 @@ def phase_train_card_vs_cpu() -> tuple:
             fused_agg=True)
     require(ledger(out["cuda"][1]) == ledger(out["cpu"][1]), "card and CPU ledgers differ")
     gap = tree_gap(out["cuda"][0], out["cpu"][0])
-    print(f"  card vs CPU, 2 layers at full width, 1 round: losses "
+    print(f"  card vs CPU, 1 layer at full width, 1 round: losses "
           f"{out['cuda'][1][0]['loss']} / {out['cpu'][1][0]['loss']}, trees max |d| {gap[0]:.3g},"
           f" mean |d| {gap[1]:.3g}")
     require(abs(out["cuda"][1][0]["loss"] - out["cpu"][1][0]["loss"]) < 1e-3,
@@ -1690,7 +1775,7 @@ def round_card_vs_cpu(name: str, family, cfg, fmt: str, batch: dict, rounds: int
 
 
 def phase_round_card_vs_cpu() -> dict:
-    ccfg = dataclasses.replace(TRAIN_CFG, n_layers=2)
+    ccfg = dataclasses.replace(TRAIN_CFG, n_layers=1)  # phase 11 trains all 17 on the card
     task = make_frame_task(d_in=ccfg.d_in, n_classes=ccfg.n_classes, seq_len=48, num_clients=16)
     conf = round_card_vs_cpu("conformer_s", conformer, ccfg, "S1E4M14", task.batch(0, 0, 0, 8), 1)
     torch.cuda.empty_cache()
@@ -1973,11 +2058,12 @@ def _phase_async() -> dict:
 
 
 def phase_async_card_vs_cpu() -> tuple:
-    """The straggler run cut to 2 layers at full width, 16 clients, buffer 4,
+    """The straggler run cut to 1 layer at full width, 16 clients, buffer 4,
     2 fused flushes, on the card (kernels) and on the CPU (plain versions):
     the same schedule and ledger, the same launches, trees within phase 7's
-    gate."""
-    cfg = dataclasses.replace(TRAIN_CFG, n_layers=2)
+    gate.  A second layer ran the same block's code again on the CPU
+    (phase 13 runs all 17 on the card)."""
+    cfg = dataclasses.replace(TRAIN_CFG, n_layers=1)
     params = conformer.init(prng.PRNGKey(4), cfg, "cuda")
     acfg, trace = straggler(16, 4)
     out = {}
@@ -1997,7 +2083,7 @@ def phase_async_card_vs_cpu() -> tuple:
         require(abs(a["loss"] - b["loss"]) < 1e-3, f"card and CPU async losses differ: {a} {b}")
     gap = tree_gap(card.storage, tree_map(lambda x: x.to("cuda"), host.storage))
     require(gap[0] <= TREE_MAX and gap[1] <= TREE_MEAN, f"card and CPU async trees differ: {gap}")
-    print(f"  async, 2 layers at full width, 16 clients, buffer 4, 2 fused flushes: schedules "
+    print(f"  async, 1 layer at full width, 16 clients, buffer 4, 2 fused flushes: schedules "
           f"and ledgers equal, losses card {[h['loss'] for h in card.history]} / CPU "
           f"{[h['loss'] for h in host.history]}, trees max |d| {gap[0]:.3g}, mean |d| "
           f"{gap[1]:.3g}; launches {cc}")
@@ -2860,6 +2946,8 @@ def strategies_card_vs_cpu() -> dict:
     Round 2 of the loop starts from the CPU's state on both sides, so the
     residual gate holds round by round (one re-compress step on a boundary
     element moves many entries across the threshold in the next round)."""
+    # 2 layers: at 1, a residual flip's dropped |comp| lay 768 ulp under its
+    # threshold on an H100, over C17's 640-ulp gate (ROADMAP C17)
     cfg = dataclasses.replace(TRAIN_CFG, n_layers=2)
     omc = OMCConfig.parse(FMT.name)
     sim = simulate.SimConfig(local_steps=1, client_lr=0.1)
@@ -3182,7 +3270,8 @@ def _phase_obs(train_peaks) -> dict:
     jsonl = str(OBS_DIR / "engine_unfused.obs.jsonl")
     with contextlib.redirect_stdout(out):
         rc = obs_report.main([jsonl])
-    require(rc == 0 and "== rounds (2) ==" in out.getvalue(), f"report: {rc} {out.getvalue()}")
+    require(rc == 0 and f"== rounds ({OBS_ROUNDS}) ==" in out.getvalue(),
+            f"report: {rc} {out.getvalue()}")
     print("  exported (bytes): " + "; ".join(f"{k} {v}" for k, v in sizes.items()))
     print("  python -m repro_torch.obs.report build/obs/engine_unfused.obs.jsonl:")
     for line in out.getvalue().splitlines():
@@ -3532,18 +3621,21 @@ def to_host(tree, arch_id: str):
     return out
 
 
-def launch_dryrun_vs_card(arch_id: str, family, cfg, per_forward: dict, storage) -> dict:
+def launch_dryrun_vs_card(arch_id: str, family, cfg, per_forward: dict, storage,
+                          overrides=None) -> dict:
     """(a) The dry-run's meta build of the served cell (``make_host_mesh(1,
     1)``, S1E3M7, batch 4, the serve path's f32 cache of ``SERVE_CACHE_LEN``)
     against the same objects on the card: every leaf's shape and dtype, and
     the predicted ``argument_size_in_bytes`` equal to the card's nbytes
-    exactly; ``memory_allocated`` around placing them printed beside.  The
-    meta trace of one decode step calls each kernel as often as a forward
-    pass launched it in phase 3 or 5."""
+    exactly; ``memory_allocated`` around placing them printed beside (a
+    tree already on the card is not copied).  The meta trace of one decode
+    step calls each kernel as often as a forward pass launched it in phase
+    3, 5 or 21.  ``overrides``: the served depth, as ``--set`` gives it."""
     mesh = launch_mesh.make_host_mesh(1, 1)
     t0 = time.perf_counter()
     cell = dryrun.build_cell(arch_id, Shape("phase3", "decode", SERVE_CACHE_LEN, 4), mesh=mesh,
-                             fmt=FMT.name, cache_dtype=torch.float32)
+                             fmt=FMT.name, cache_dtype=torch.float32, overrides=overrides)
+    require(cell.cfg == cfg, f"{arch_id}: the meta cell's config {cell.cfg} is not the served one")
     counter = dryrun.trace_cell(cell)
     meta_s = time.perf_counter() - t0
     predicted = dryrun.argument_bytes(cell)
@@ -3631,16 +3723,19 @@ def launch_device_ef(packed) -> dict:
     return dict(counts=counts, leaves=len(rows))
 
 
-def phase_launch(served=None, packed=None) -> dict:
+def phase_launch(served=None, packed=None, mixtral=None) -> dict:
     """``served``: ``{arch_id: host storage tree}`` from phases 3 and 5;
-    ``packed``: phase 19 (c)'s packed store.  Each is made here when not
-    given (the phase run alone)."""
+    ``packed``: phase 19 (c)'s packed store; ``mixtral``: phase 21 (a)'s
+    storage, on the card.  Each is made here when not given (the phase run
+    alone)."""
     if served is None:
         served = {}
         for arch_id, *_ in LAUNCH_ARCHS:
             sess = serve_full_width(arch_id, more_batches=0)["session"]
             served[arch_id] = to_host(sess.storage, arch_id)
             del sess
+    if mixtral is None:
+        mixtral = zoo_serve("mixtral-8x7b", roundtrip=False, gen=1)["session"].storage
     if packed is None:
         packed = scale.PopulationStore(scale.ShardLayout(16, 2))
         shapes = conformer.init(prng.PRNGKey(0), TRAIN_CFG, "meta")
@@ -3656,6 +3751,14 @@ def phase_launch(served=None, packed=None) -> dict:
                                                served.pop(arch_id))
         times[f"(a) {arch_id}"] = time.perf_counter() - t0
         torch.cuda.empty_cache()
+    depth = ZOO_DEPTH["mixtral-8x7b"][0]
+    mcfg = dataclasses.replace(get_arch("mixtral-8x7b").config(), n_layers=depth)
+    t0 = time.perf_counter()
+    parts["mixtral-8x7b"] = launch_dryrun_vs_card("mixtral-8x7b", moe, mcfg, zoo_formula(mcfg),
+                                                  mixtral, overrides={"n_layers": str(depth)})
+    times["(a) mixtral-8x7b"] = time.perf_counter() - t0
+    del mixtral
+    torch.cuda.empty_cache()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     micro = launch_kernels_micro()
@@ -3669,6 +3772,308 @@ def phase_launch(served=None, packed=None) -> dict:
                      pack=None, unpack=None, fused_aggregate=None)
     print("  parts: " + ", ".join(f"{k} {v:.1f} s" for k, v in times.items()))
     return dict(counts=counts, parts=parts, micro=micro, times=times)
+
+
+# ---------------------------------------------------------------------------
+# 21. the decoder-only zoo at full width
+# ---------------------------------------------------------------------------
+
+# depth cuts at full width: S1E3M7 codes (2 B) beside the f32 init (4 B) take
+# 6 B a parameter, and one card holds 80 GB; the rest serve at full depth
+ZOO_DEPTH = {
+    "mixtral-8x7b": (4, "46.70 B parameters need 93.4 GB of S1E3M7 codes alone; 4 of 32 "
+                        "layers (1.45 B each) with the embedding and head keep the f32 init "
+                        "and the codes near 35 GB, and the init and wire roundtrip within "
+                        "phase 21's time"),
+    "dbrx-132b": (2, "131.6 B parameters (3.26 B a layer); 2 of 40 layers with the 1.23 B "
+                     "embedding and head, about 47 GB with the f32 init"),
+    "mistral-nemo-12b": (2, "12.2 B parameters need 73.5 GB at 6 B each, too close to 80 GB; "
+                            "2 of 40 layers"),
+    "qwen1.5-110b": (1, "111.2 B parameters (1.36 B a layer); 1 of 80 layers beside the "
+                        "2.49 B untied embedding and head"),
+    "internvl2-1b": (None, "full depth (0.63 B parameters)"),
+    "h2o-danube-3-4b": (None, "full depth (3.96 B parameters, about 24 GB with the f32 init)"),
+}
+ZOO_KERNELS = ("quantize_stats", "dequantize", "dequant_matmul")  # a serve without the wire
+ROUTE_GAP = 1e-3  # C26: a routing flip's k-th and (k+1)-th probabilities within this, relative
+ZOO_RING_PROMPT = 4128  # phase 21 (e): past h2o's 4,096-slot ring
+EP_GAP = 1e-4  # phase 21 (b): ep_partitions 2 against 1, relative to the largest logit
+
+
+def zoo_formula(cfg) -> dict:
+    """Launches a forward pass: the block matrices through dequant_matmul (a
+    MoE layer: attention's 4 and each stored expert's 3), and through
+    dequantize the embedding rows, the head and each MoE layer's router."""
+    if isinstance(cfg, moe.MoEConfig):
+        return dict(dequant_matmul=cfg.n_layers * (4 + 3 * cfg.stored_experts),
+                    dequantize=cfg.n_layers + 2)
+    return dict(dequant_matmul=7 * cfg.n_layers, dequantize=2)
+
+
+def zoo_cpu_per_forward(arch_id: str, layers: int) -> dict:
+    """A CPU dry run at the smoke config's widths (with the full config's
+    experts and top-k), 1 and 2 layers, counting the plain versions' launches
+    of one prefill; the per-layer and fixed counts scaled to ``layers``."""
+    arch = get_arch(arch_id)
+    full, family = arch.config(), get_family(arch.FAMILY)
+    counts = []
+    for n in (1, 2):
+        cfg = dataclasses.replace(arch.smoke_config(), n_layers=n)
+        if isinstance(full, moe.MoEConfig):
+            cfg = dataclasses.replace(cfg, n_experts=full.n_experts, top_k=full.top_k)
+        storage = compress_params(family.init(prng.PRNGKey(0), cfg, "cpu"),
+                                  family.param_specs(cfg), OMCConfig.parse(FMT.name))
+        batch = serve.request_batch(prng.PRNGKey(0), arch.FAMILY, cfg, 2, 4, "cpu")
+        ops.reset_launch_counts()
+        family.prefill(cfg, storage, batch, materialize.OMCMaterializer(),
+                       family.init_decode_state(cfg, 2, 16, dtype=torch.float32, device="cpu"))
+        counts.append({k[:-len(".ref")]: v for k, v in ops.launch_counts().items()})
+    return {op: counts[0][op] + (counts[1][op] - counts[0][op]) * (layers - 1)
+            for op in counts[0]}
+
+
+def zoo_serve(arch_id: str, roundtrip: bool, gen: int = 16) -> dict:
+    """``serve.run`` of one zoo arch at full width and its depth, the
+    launches a forward pass exactly ``zoo_formula``'s and the CPU dry run's."""
+    layers, why = ZOO_DEPTH[arch_id]
+    cfg = get_arch(arch_id).config()
+    depth = layers or cfg.n_layers
+    print(f"  {arch_id}: {depth} of {cfg.n_layers} layers at full width (d {cfg.d_model}, "
+          f"vocab {cfg.vocab:,}); {why}")
+    served = serve_full_width(arch_id, more_batches=0, layers=layers, roundtrip=roundtrip,
+                              gen=gen)
+    report, sess = served["report"], served["session"]
+    want = zoo_formula(sess.cfg)
+    predicted = zoo_cpu_per_forward(arch_id, depth)
+    require(predicted == want, f"{arch_id}: the CPU dry run predicts {predicted}, the "
+            f"formula {want}")
+    require_per_forward(report["launch_counts"], arch_id, report["forward_passes"], want,
+                        SERVE_KERNELS if roundtrip else ZOO_KERNELS)
+    print(f"  {arch_id}: {want} a forward pass, as the CPU dry run at the smoke widths "
+          f"predicts, over {report['forward_passes']} passes")
+    served.update(depth=depth, why=why, per_forward=want)
+    return served
+
+
+@contextlib.contextmanager
+def recorded_routes(log: list):
+    """Inside, each ``moe._route`` call appends (probs, ids, gates) on the host."""
+    route = moe._route
+
+    def recording(x2d, router_w, cfg):
+        out = route(x2d, router_w, cfg)
+        log.append((torch.softmax((x2d @ router_w).float(), -1).cpu(), out[1].cpu(),
+                    out[0].cpu()))
+        return out
+
+    moe._route = recording
+    try:
+        yield log
+    finally:
+        moe._route = route
+
+
+def kept_pairs(gates, ids, cfg, capacity: int) -> torch.Tensor:
+    """[T * k] bool: the (token, expert) pairs inside their expert's capacity,
+    by the dispatch's rule."""
+    flat_g, flat_e = gates.reshape(-1), ids.reshape(-1)
+    kept = torch.zeros(flat_e.shape, dtype=torch.bool)
+    for e in range(cfg.n_experts):
+        v, i = moe.top_k(torch.where(flat_e == e, flat_g, -1.0), capacity)
+        kept[i[v > 0]] = True
+    return kept
+
+
+def near_tie(probs: torch.Tensor, k: int) -> float:
+    """Relative gap between a token's k-th and (k+1)-th router probabilities."""
+    top = torch.sort(probs, descending=True).values
+    return ((top[k - 1] - top[k]) / top[k - 1]).item()
+
+
+def zoo_steps(sess, tokens, decode_steps: int, pick=None, log=None) -> list:
+    """Prefill and ``decode_steps`` decode steps (the tokens of ``pick``, else
+    the argmax); the logits on the host; routes recorded into ``log``."""
+    with recorded_routes(log if log is not None else []):
+        c, lg = sess.prefill(dict(tokens=tokens), sess.init_cache(tokens.shape[0], 64))
+        out = [lg.cpu()]
+        for i in range(decode_steps):
+            tok = (pick[i] if pick else torch.argmax(out[-1][:, -1], dim=-1))[:, None]
+            c, lg = sess.decode_step(c, tok.to(tokens.device))
+            out.append(lg.cpu())
+    return out
+
+
+def reslice_experts(cv, parts: int, down: bool):
+    """An expert stack ``[L, E, D, F]`` (``w2``: ``[L, E, F, D]``) in code form
+    as ``[L, E * parts, D, F / parts]``: each expert's FFN dim split over
+    ``parts`` stored experts, the same codes and (s, b)."""
+    twin = cv.codes.view(SIGNED_TWIN[cv.codes.dtype])  # copies cover the signed dtypes
+    n, e, r, c = twin.shape
+    if down:
+        out = twin.reshape(n, e * parts, r // parts, c)
+    else:
+        out = twin.reshape(n, e, r, parts, c // parts).permute(0, 1, 3, 2, 4).reshape(
+            n, e * parts, r, c // parts)
+    return type(cv)(out.contiguous().view(cv.codes.dtype), cv.s, cv.b, cv.fmt)
+
+
+def zoo_mixtral_card_vs_cpu(sess) -> dict:
+    """(b) mixtral at 1 layer of full width, prompt 8, 2 decode tokens, batch
+    4: the card (kernels) against the CPU over the same codes decoded once as
+    the plain version decodes (:func:`plain_decoded`).  Routing
+    flips counted, each checked to be a near-tie on both sides (ROADMAP C26),
+    logits compared on the rows that never flipped; then ``ep_partitions=2``
+    on the card over the same codes resliced, against ``ep_partitions=1``."""
+    st = sess.storage
+    cut = dict(embed=st["embed"], final_norm=st["final_norm"], lm_head=st["lm_head"],
+               blocks={k: v[:1] for k, v in st["blocks"].items()})
+    cfg = dataclasses.replace(sess.cfg, n_layers=1)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    toks = torch.randint(0, cfg.vocab, (4, 8), generator=g, device="cuda")
+    card_log, host_log = [], []
+    gpu = ServeSession(moe, cfg, cut)
+    t0 = time.perf_counter()
+    card = zoo_steps(gpu, toks, 2, log=card_log)
+    again = zoo_steps(gpu, toks, 2)
+    card_s = time.perf_counter() - t0
+    require(all(bit_equal(x, y) for x, y in zip(card, again)),
+            "mixtral: the card's logits differ between two runs of the same requests")
+    picks = [torch.argmax(lg[:, -1], dim=-1) for lg in card[:2]]
+    t0 = time.perf_counter()
+    decoded = plain_decoded(tree_map(lambda x: x.to("cpu"), cut))
+    host = zoo_steps(ServeSession(moe, cfg, decoded), toks.cpu(), 2, picks, host_log)
+    host_s = time.perf_counter() - t0
+    del decoded
+    # flips: a token whose chosen experts differ, or a pair kept on one side only
+    rows_of = [lambda t: t // 8] + [lambda t: t] * 2  # prefill's 4 x 8 tokens, then 4
+    excluded, flips, cap_flips, gaps = set(), 0, 0, []
+    for step, ((pc, ic, gc), (ph, ih, gh)) in enumerate(zip(card_log, host_log)):
+        tokens = ic.shape[0]
+        cap = moe._capacity(tokens, cfg)
+        same = (ic.sort(-1).values == ih.sort(-1).values).all(-1)
+        kc = kept_pairs(gc, ic, cfg, cap).reshape(tokens, -1)
+        kh = kept_pairs(gh, ih, cfg, cap).reshape(tokens, -1)
+        step_cap = 0
+        for t in range(tokens):
+            if same[t] and torch.equal(kc[t], kh[t]):
+                continue
+            if same[t]:
+                step_cap += 1
+            else:
+                flips += 1
+                gap = max(near_tie(pc[t], cfg.top_k), near_tie(ph[t], cfg.top_k))
+                gaps.append(gap)
+                require(gap <= ROUTE_GAP, f"mixtral: token {t} of step {step} routes to "
+                        f"{ic[t].tolist()} on the card, {ih[t].tolist()} on the CPU, with its "
+                        f"k-th and (k+1)-th probabilities {gap:.3g} apart (C26 allows "
+                        f"{ROUTE_GAP})")
+            excluded.add(rows_of[step](t))
+        load = max(torch.bincount(x.reshape(-1), minlength=cfg.n_experts).max().item()
+                   for x in (ic, ih))
+        require(step_cap == 0 or load > cap, "mixtral: a capacity flip with no expert full")
+        cap_flips += step_cap
+    diffs = []
+    for step, (lc, lh) in enumerate(zip(card, host)):
+        rows = [r for r in range(4) if r not in excluded]
+        if rows:
+            diffs.append((lc[rows] - lh[rows]).abs().max().item())
+    worst = max(diffs) if diffs else 0.0
+    require(worst <= 1e-3, f"mixtral: card and CPU logits differ by {worst} on unflipped rows")
+    # ep_partitions=2 on the card over the same codes, resliced
+    cfg2 = dataclasses.replace(cfg, ep_partitions=2)
+    cut2 = dict(cut, blocks=dict(cut["blocks"], **{
+        k: reslice_experts(cut["blocks"][k], 2, down=k == "w2") for k in ("w1", "w3", "w2")}))
+    ep2 = zoo_steps(ServeSession(moe, cfg2, cut2), toks, 2, picks)
+    # each expert's w2 product sums K = 14,336 terms in one launch with one
+    # partition, in two of 7,168 with two: f32 reassociation, about
+    # eps * sqrt(K) = 1.4e-5 of the hidden state's scale, and the largest of
+    # 384,000 logits a few times that; gated at EP_GAP of each step's
+    # largest logit (an absolute 1e-5 failed at 4.03e-5 on an H100)
+    ep_rel = max(((a - b).abs().max() / b.abs().max()).item() for a, b in zip(ep2, card))
+    ep_diff = max((a - b).abs().max().item() for a, b in zip(ep2, card))
+    require(ep_rel <= EP_GAP, f"mixtral: ep_partitions=2 differs from 1 by {ep_diff} "
+            f"({ep_rel:.3g} of the largest logit)")
+    print(f"  (b) mixtral 1 layer, batch 4, prompt 8, 2 decode steps: card {card_s:.1f} s "
+          f"(twice, the same bits), CPU {host_s:.1f} s; routing flips {flips} (gaps {gaps}), "
+          f"capacity flips {cap_flips}, rows excluded {sorted(excluded)}; max |logit diff| on "
+          f"the rest per step {diffs}; ep_partitions=2 against 1 on the card: max |d| "
+          f"{ep_diff:.3g}, {ep_rel:.3g} of the largest logit")
+    return dict(flips=flips, capacity_flips=cap_flips, gaps=gaps, worst=worst, ep_diff=ep_diff,
+                ep_rel=ep_rel, card_s=card_s, host_s=host_s)
+
+
+def zoo_prefix_consistency(sess, arch_id: str, batch: int, prompt: int, cache_len: int,
+                           cut=None) -> float:
+    """prefill(n) + one decode step against prefill(n + 1), within the
+    reference's 5e-4 (tests/test_models_smoke.py), with a cache of
+    ``cache_len`` slots; ``cut``: a (cfg, storage) to serve instead."""
+    cfg, storage = cut if cut else (sess.cfg, sess.storage)
+    s = ServeSession(sess.family, cfg, storage)
+    full = serve.request_batch(prng.PRNGKey(7), get_arch(arch_id).FAMILY, cfg, batch,
+                               prompt + 1, "cuda")
+    part = dict(full, tokens=full["tokens"][:, :prompt])
+    _, la = s.prefill(full, s.init_cache(batch, cache_len))
+    c, _ = s.prefill(part, s.init_cache(batch, cache_len))
+    _, lb = s.decode_step(c, full["tokens"][:, prompt:prompt + 1])
+    err = (la - lb).abs().max().item()
+    require(bool(torch.isfinite(lb).all()) and torch.allclose(la, lb, rtol=5e-4, atol=5e-4),
+            f"{arch_id}: prefill(n) + decode differs from prefill(n + 1) by {err}")
+    return err
+
+
+def phase_zoo() -> dict:
+    """(a) mixtral-8x7b with the wire roundtrip, (b) its card against CPU and
+    ``ep_partitions=2``, (c) dbrx-132b, (d) internvl2-1b with 1,024 patches,
+    (e) h2o-danube-3-4b, and its ring wrap at 2 layers, (f) mistral-nemo-12b
+    and qwen1.5-110b; (c)-(f) without the wire roundtrip, which (a) runs.  Counters zeroed around each serve (the main path);
+    the comparisons are not counted.  Returns mixtral's storage, kept on the
+    card for phase 20."""
+    times, parts, counts = {}, {}, []
+
+    def step(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+        return out
+
+    served = step("(a) mixtral-8x7b", zoo_serve, "mixtral-8x7b", True)
+    counts.append(served["report"]["launch_counts"])
+    parts["mixtral"] = {k: served["report"][k] for k in (
+        "n_layers", "init_ms", "prefill_ms", "decode_ms_per_token", "max_memory_allocated",
+        "payload_ratio", "roundtrip_ms")}
+    parts["mixtral_card_vs_cpu"] = step("(b) mixtral card against CPU", zoo_mixtral_card_vs_cpu,
+                                        served["session"])
+    mixtral = served["session"].storage
+    del served
+    for name, arch_id, roundtrip, gen in (("(c)", "dbrx-132b", False, 16),
+                                         ("(d)", "internvl2-1b", False, 16),
+                                         ("(e)", "h2o-danube-3-4b", False, 16),
+                                         ("(f)", "mistral-nemo-12b", False, 4),
+                                         ("(f)", "qwen1.5-110b", False, 4)):
+        served = step(f"{name} {arch_id}", zoo_serve, arch_id, roundtrip, gen)
+        counts.append(served["report"]["launch_counts"])
+        parts[arch_id] = {k: served["report"][k] for k in (
+            "n_layers", "init_ms", "prefill_ms", "decode_ms_per_token", "max_memory_allocated")}
+        sess = served.pop("session")
+        if arch_id == "internvl2-1b":  # a cache that holds the whole prefixed stream
+            err = step("(d) internvl2 prefix check", zoo_prefix_consistency, sess, arch_id, 4,
+                       32, sess.cfg.prefix_embeds + 64)
+            print(f"  (d) internvl2-1b, 1,024 patches + 32 tokens, batch 4: prefill(n) + "
+                  f"decode against prefill(n + 1), max |d| {err:.3g}")
+        if arch_id == "h2o-danube-3-4b":  # 2 layers, batch 1, past the 4,096-slot ring
+            st = sess.storage
+            cut = (dataclasses.replace(sess.cfg, n_layers=2),
+                   dict(st, blocks={k: v[:2] for k, v in st["blocks"].items()}))
+            err = step("(e) h2o ring wrap", zoo_prefix_consistency, sess, arch_id, 1,
+                       ZOO_RING_PROMPT, 2 * ZOO_RING_PROMPT, cut)
+            print(f"  (e) h2o-danube-3-4b, 2 layers, prompt {ZOO_RING_PROMPT} past the "
+                  f"{sess.cfg.window}-slot ring: prefill(n) + decode against prefill(n + 1), "
+                  f"max |d| {err:.3g}")
+        del sess, served
+        torch.cuda.empty_cache()
+    print("  parts: " + ", ".join(f"{k} {v:.1f} s" for k, v in times.items()))
+    return dict(counts=_plus(*counts), parts=parts, times=times, mixtral=mixtral)
 
 
 def min_ms(fn, reps: int = 3) -> float:
@@ -3756,8 +4161,9 @@ def main() -> None:
     scaled = timed(19, "population runtime at full width", phase_scale, trained.pop("warm"),
                    strategies["train"].pop("none"), strategies["train"].pop("topk"))
     torch.cuda.empty_cache()
+    zoo = timed(21, "the decoder-only zoo at full width", phase_zoo)
     launched = timed(20, "launch and roofline on the card", phase_launch, on_host,
-                     scaled.pop("packed"))
+                     scaled.pop("packed"), zoo.pop("mixtral"))
     print(f"all phases: {time.perf_counter() - t0:.1f} s")
     print(json.dumps(kernel_line(kernels, {"serve": served["report"]["launch_counts"],
                                            "serve_griffin": served_g["report"]["launch_counts"],
@@ -3770,7 +4176,8 @@ def main() -> None:
                                            "strategies": strategies["counts"],
                                            "obs": telemetry["counts"],
                                            "scale": scaled["counts"],
-                                           "launch": launched["counts"]})))
+                                           "launch": launched["counts"],
+                                           "zoo": zoo["counts"]})))
     print(json.dumps(dict(ok=True, device=dict(platform="gpu", kind=torch.cuda.get_device_name(0),
                                                count=torch.cuda.device_count()))))
 

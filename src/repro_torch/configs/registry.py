@@ -1,8 +1,7 @@
-"""Architecture registry: ``--arch <id>`` -> config module (qwen2.5-3b,
-recurrentgemma-2b, conformer_s).
+"""Architecture registry: ``--arch <id>`` -> config module.
 
-Only the architectures the port has reached are listed in ``ARCHS``; the
-rest of the reference's zoo is queued in ROADMAP.md (queue A10).
+Only the architectures the port has reached are listed in ``ARCHS``:
+xlstm-350m and seamless-m4t-medium are queued in ROADMAP.md (queue A10).
 ``ASSIGNED`` keeps the reference's ten dry-run ids in its order, ported or
 not: a caller skips an id that :func:`get_arch` refuses, naming A10.
 """
@@ -12,9 +11,21 @@ from __future__ import annotations
 from types import ModuleType
 from typing import Dict, List
 
-from . import conformer_s, qwen2_5_3b, recurrentgemma_2b
+from . import (
+    conformer_s,
+    dbrx_132b,
+    h2o_danube3_4b,
+    internvl2_1b,
+    mistral_nemo_12b,
+    mixtral_8x7b,
+    qwen1_5_110b,
+    qwen2_5_3b,
+    recurrentgemma_2b,
+)
 
-ARCHS: Dict[str, ModuleType] = {m.ID: m for m in (qwen2_5_3b, recurrentgemma_2b, conformer_s)}
+ARCHS: Dict[str, ModuleType] = {m.ID: m for m in (
+    qwen2_5_3b, h2o_danube3_4b, qwen1_5_110b, mistral_nemo_12b, internvl2_1b, dbrx_132b,
+    mixtral_8x7b, recurrentgemma_2b, conformer_s)}
 
 # the reference's 10 assigned dry-run architectures (conformer_s is benchmark-only)
 ASSIGNED: List[str] = [

@@ -9,7 +9,9 @@ model its weights:
     (a key the model names in ``operands``) stays in code form, one entry
     with its own ``(s, b)``: ``models.common.linear`` streams its codes
     through the ``dequant_matmul`` kernel, so the f32 weight never exists in
-    device memory (DESIGN.md §2);
+    device memory (DESIGN.md §2).  So does a layer's MoE expert stack
+    (codes ``[E, D, F]`` with the layer's one ``(s, b)``), whose experts
+    ``models.moe`` multiplies by one at a time;
   * every other compressed leaf is decoded and PVT-corrected on the fly,
     one ``dequantize`` launch per leaf on CUDA, into a transient f32 tensor
     dropped after use (the paper's decompress-on-the-fly, Fig. 1);
@@ -84,16 +86,23 @@ def pack_qparams(params, sinks=None):
     return tree_map(QParam, params, sinks)
 
 
+def _operand(v) -> bool:
+    """A compressed matmul operand the kernel takes: one matrix, or a stack
+    of expert matrices sharing one ``(s, b)``."""
+    return is_compressed(v) and (v.codes.ndim == 2
+                                 or (v.codes.ndim == 3 and v.s.numel() == 1))
+
+
 class OMCMaterializer(Materializer):
     """Materializer that decodes ``CompressedVariable`` and ``QParam`` leaves,
-    but for the compressed 2-D matmul operands named in ``operands``, which
-    stay in code form (serving only)."""
+    but for the compressed matmul operands named in ``operands`` (a matrix or
+    an expert stack), which stay in code form (serving only)."""
 
     def __call__(self, subtree, operands=()):
         if not operands:
             return tree_map(self.leaf, subtree)
-        return {k: v if k in operands and is_compressed(v) and v.codes.ndim == 2
-                else tree_map(self.leaf, v) for k, v in subtree.items()}
+        return {k: v if k in operands and _operand(v) else tree_map(self.leaf, v)
+                for k, v in subtree.items()}
 
     def leaf(self, x):
         if isinstance(x, QParam):

@@ -32,9 +32,12 @@ Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun ... --fp32-baseline
 
 ``--all`` runs ``ASSIGNED`` x ``SHAPES`` and names each cell it skips: a
-full-attention arch at ``long_500k`` (as the reference), an arch or family
-not ported yet, and griffin's training step (its ``forward`` and ``loss``),
-all ROADMAP A10.
+full-attention arch at ``long_500k`` (as the reference), and, ROADMAP A10,
+an arch not ported yet (xlstm-350m, seamless-m4t-medium) and griffin's
+training step (its ``forward`` and ``loss``).  A MoE cell on the
+production mesh stores ``ep_partitions`` experts a shard as the reference
+does (``specs.maybe_ep_partitions``), and dispatches over the whole batch
+(ROADMAP C27).
 """
 
 from __future__ import annotations

@@ -6,13 +6,24 @@ paper's storage model): every block matrix streams its codes through the
 rows, a tied head, griffin's ``conv_w``) are decoded on the fly by
 ``dequantize``.  The CLI runs on a
 :class:`repro_torch.api.session.ServeSession`; it reports prefill and
-per-token decode latency and throughput.  ``--arch`` is qwen2.5-3b or
-recurrentgemma-2b; the batch is ``dict(tokens=...)`` for both.
+per-token decode latency and throughput.  ``--arch`` is any ported
+servable arch: qwen2.5-3b, h2o-danube-3-4b, mistral-nemo-12b, qwen1.5-110b
+(dense), mixtral-8x7b, dbrx-132b (MoE: every expert matrix through
+``dequant_matmul``, the router decoded), internvl2-1b (VLM) or
+recurrentgemma-2b.  The batch is ``dict(tokens=...)``; the VLM's also
+holds ``patches``, the stubbed vision frontend's embeddings, drawn as the
+reference draws them.  The decode state holds ``4 * (prompt + gen)``
+positions, as the reference sizes it, without the VLM's prefix: the
+reference's quirk, kept so that both CLIs give the same logits (ROADMAP
+C28).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \\
         --batch 4 --prompt-len 32 --gen 16 --fmt S1E3M7 --wire-roundtrip
 
-``--wire-roundtrip`` first pushes the weights through the wire codec
+``--layers N`` serves the first N layers at full width: a depth cut for
+the configs whose codes do not fit one card whole (mixtral-8x7b,
+dbrx-132b, qwen1.5-110b).  ``--wire-roundtrip`` first pushes the weights
+through the wire codec
 (``pack`` kernel -> payload bytes -> ``unpack`` kernel -> ``hot_swap``) and
 checks that the served tree came back bit-identical.  ``--device`` defaults
 to ``cuda``; without a card the CLI raises unless ``--device cpu`` is
@@ -22,6 +33,7 @@ given.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 from typing import Any, Dict, Optional, Sequence, Tuple
@@ -48,6 +60,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--layers", type=int, default=None,
+                    help="serve the first N layers at full width (default: the config's)")
     ap.add_argument("--device", default="cuda", help="torch device (default: cuda)")
     ap.add_argument("--wire-roundtrip", action="store_true",
                     help="serialize weights through the wire codec first")
@@ -67,6 +81,8 @@ def build_session(args: argparse.Namespace) -> Tuple[ServeSession, prng.Key, flo
     if not is_servable(arch.FAMILY):
         raise SystemExit(f"{args.arch} ({arch.FAMILY}) has no decode step")
     cfg = arch.smoke_config() if args.smoke else arch.config()
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     family = get_family(arch.FAMILY)
     key = prng.PRNGKey(args.seed)
     sync(device)
@@ -86,13 +102,25 @@ def prompt_tokens(key: prng.Key, batch: int, prompt_len: int, vocab: int,
     return prng.randint(prng.fold_in(key, 1), (batch, prompt_len), 0, vocab, device)
 
 
+def request_batch(key: prng.Key, family: str, cfg, batch: int, prompt_len: int,
+                  device) -> Dict[str, torch.Tensor]:
+    """The reference CLI's request: :func:`prompt_tokens`, and for the VLM
+    ``patches = normal(fold_in(key, 2), (batch, prefix_embeds, d_model))``
+    (within ``prng.normal``'s 4 ulp)."""
+    out = dict(tokens=prompt_tokens(key, batch, prompt_len, cfg.vocab, device))
+    if family == "vlm":
+        out["patches"] = prng.normal(prng.fold_in(key, 2),
+                                     (batch, cfg.prefix_embeds, cfg.d_model), device)
+    return out
+
+
 def run(args: argparse.Namespace) -> Dict[str, Any]:
     """Serve once as the CLI would; return the report (and the live session
     under ``"session"``, which ``main`` does not print)."""
     log = Logger(quiet=args.quiet)
     sess, key, init_ms = build_session(args)
     storage, cfg, device = sess.storage, sess.cfg, sess.device
-    report: Dict[str, Any] = dict(arch=args.arch, smoke=bool(args.smoke),
+    report: Dict[str, Any] = dict(arch=args.arch, smoke=bool(args.smoke), n_layers=cfg.n_layers,
                                   fmt=OMCConfig.parse(args.fmt).fmt.name,
                                   device=str(device), init_ms=init_ms,
                                   **state_bytes_report(storage))
@@ -113,11 +141,11 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
     del storage
 
     b, s = args.batch, args.prompt_len
-    toks = prompt_tokens(key, b, s, cfg.vocab, device)
+    batch = request_batch(key, get_arch(args.arch).FAMILY, cfg, b, s, device)
     cache = sess.init_cache(b, 4 * (s + args.gen), dtype=torch.float32)
     sync(device)
     t0 = time.perf_counter()
-    cache, logits = sess.prefill(dict(tokens=toks), cache)
+    cache, logits = sess.prefill(batch, cache)
     sync(device)
     t_prefill = time.perf_counter() - t0
     log.info(f"prefill [{b}x{s}] in {t_prefill * 1e3:.1f} ms", batch=b, prompt_len=s,

@@ -10,8 +10,8 @@ A ``CompressedVariable`` keeps its structure: its codes follow the leaf's
 storage spec, its ``(s, b)`` are replicated.  Values that are not tensors
 (host counters, PRNG keys, the decode state's ``length``) pass through.
 
-The families the port lacks (``vlm``, ``encdec``, ``moe``, ``xlstm``) raise,
-naming ROADMAP A10.
+The families the port lacks (``encdec``, ``xlstm``) raise, naming ROADMAP
+A10.
 """
 
 from __future__ import annotations
@@ -33,7 +33,7 @@ from repro_torch.models.common import (
     resolve_spec,
 )
 
-_NOT_PORTED = ("vlm", "encdec", "moe", "xlstm")
+_NOT_PORTED = ("encdec", "xlstm")
 
 
 def _not_ported(family: str) -> NotImplementedError:
@@ -78,15 +78,24 @@ def batch_specs(arch_mod, cfg, shape: Shape) -> Dict[str, torch.Tensor]:
     fam = arch_mod.FAMILY
     if fam in _NOT_PORTED:
         raise _not_ported(fam)
-    if fam not in ("transformer", "griffin"):
-        raise ValueError(f"no input specs for family {fam}")
 
     def tok(n):  # the port's token dtype (prng.randint, argmax): int64
         return torch.empty((b, n), dtype=torch.int64, device="meta")
 
-    if shape.kind == "train":
-        return dict(tokens=tok(s), labels=tok(s))
-    return dict(tokens=tok(s if shape.kind == "prefill" else 1))
+    if fam in ("transformer", "moe", "griffin"):
+        if shape.kind == "train":
+            return dict(tokens=tok(s), labels=tok(s))
+        return dict(tokens=tok(s if shape.kind == "prefill" else 1))
+    if fam == "vlm":  # the stubbed frontend's patch embeddings, then the tokens
+        nt = s - cfg.prefix_embeds
+        patches = torch.empty((b, cfg.prefix_embeds, cfg.d_model), dtype=torch.float32,
+                              device="meta")
+        if shape.kind == "train":
+            return dict(patches=patches, tokens=tok(nt), labels=tok(nt))
+        if shape.kind == "prefill":
+            return dict(patches=patches, tokens=tok(nt))
+        return dict(tokens=tok(1))
+    raise ValueError(f"no input specs for family {fam}")
 
 
 _BATCH_AXES = {
@@ -192,8 +201,6 @@ def decode_state_axes(family: str, cfg, struct):
     from repro_torch.models import attention as attn
 
     if family in ("transformer", "vlm", "moe"):
-        if family != "transformer":
-            raise _not_ported(family)
         return attn.KVCache(k=_KV, v=_KV, pos=_KVPOS, length=())
     if family in ("encdec", "xlstm"):
         raise _not_ported(family)

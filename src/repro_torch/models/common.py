@@ -356,9 +356,9 @@ def softmax_xent_chunked(hidden: torch.Tensor, head_w: torch.Tensor, labels: tor
     return loss_sum / torch.clamp(count, min=1.0)
 
 
-def scan_blocks(block_fn: Callable, stacked_params, x: torch.Tensor,
-                mat: Materializer) -> torch.Tensor:
-    """Loop over stacked layer params: ``carry = block_fn(carry, w)``.
+def scan_blocks(block_fn: Callable, stacked_params, x, mat: Materializer):
+    """Loop over stacked layer params: ``carry = block_fn(carry, w, i)``, ``i``
+    the layer's index.  The carry is a tensor or a tuple of tensors.
 
     Each layer is materialized inside its own ``checkpoint`` (non-reentrant),
     so its decoded weights and activations are not kept for the backward
@@ -374,7 +374,7 @@ def scan_blocks(block_fn: Callable, stacked_params, x: torch.Tensor,
     n = len(next(tree_items(slices))[1])
 
     def body(carry, i):
-        return block_fn(carry, mat(tree_map(lambda a: a[i], slices)))
+        return block_fn(carry, mat(tree_map(lambda a: a[i], slices)), i)
 
     for i in range(n):
         if torch.is_grad_enabled():

@@ -185,7 +185,7 @@ def forward(cfg: ConformerConfig, params, batch, mat: Materializer) -> torch.Ten
     x = frames @ mat.leaf(params["in_proj"]) + mat.leaf(params["in_bias"])
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
-    return scan_blocks(lambda carry, w: _block_apply(cfg, w, carry, positions),
+    return scan_blocks(lambda carry, w, _: _block_apply(cfg, w, carry, positions),
                        params["blocks"], x, mat)
 
 

@@ -2,9 +2,10 @@
 
 A family module exposes ``init`` and ``param_specs``; a servable one also
 ``prefill``, ``decode_step`` and ``init_decode_state``, a trainable one
-``loss``.  The dense transformer (serve and train), griffin (serve) and the
-conformer (train) are ported; the other families are queued in ROADMAP.md
-(queue A10).
+``loss``.  ``"vlm"`` resolves to the transformer (``prefix_embeds > 0`` in
+the config; the vision frontend is a stub).  The dense transformer, the VLM
+and the MoE (serve and train), griffin (serve) and the conformer (train)
+are ported; ``xlstm`` and ``encdec`` are queued in ROADMAP.md (queue A10).
 """
 
 from __future__ import annotations
@@ -12,12 +13,18 @@ from __future__ import annotations
 from types import ModuleType
 from typing import Dict
 
-from . import conformer, griffin, transformer
+from . import conformer, griffin, moe, transformer
 
-_FAMILIES: Dict[str, ModuleType] = {"transformer": transformer, "griffin": griffin,
-                                     "conformer": conformer}
+_FAMILIES: Dict[str, ModuleType] = {
+    "transformer": transformer,
+    "vlm": transformer,  # prefix_embeds > 0 in the config
+    "moe": moe,
+    "griffin": griffin,
+    "conformer": conformer,
+}
 
-SERVABLE = {"transformer", "griffin"}
+# the reference's servable families; xlstm and encdec are not ported yet
+SERVABLE = {"transformer", "vlm", "moe", "xlstm", "griffin", "encdec"}
 
 
 def get_family(name: str) -> ModuleType:

@@ -6,10 +6,11 @@ against the head) and serving (``prefill`` and ``decode_step`` against a KV
 cache), over any parameter tree a
 :class:`~repro_torch.models.common.Materializer` turns into compute weights
 (the identity for f32 params, ``OMCMaterializer`` for OMC storage and for
-the training round's ``QParam`` tree).  Only the token path of the
-reference's ``_input_embeds`` is ported: a modality prefix
-(``prefix_embeds``, ``batch["patches"]``) waits for its families (ROADMAP
-A10).
+the training round's ``QParam`` tree).  A config with ``prefix_embeds >
+0`` is the VLM (internvl2-1b): ``batch["patches"]``, the stubbed vision
+frontend's precomputed embeddings, are prepended to the token rows and
+carry no next-token target.  A config whose windows differ between layers
+(``swa_every > 1``) runs each layer with its own window.
 
 When serving, the stacked block parameters are consumed by a Python loop
 over layers.  The seven block matrices of a layer (``OPERANDS``) go through
@@ -40,6 +41,7 @@ from .common import (
     linear,
     rms_norm,
     scan_blocks,
+    shard_hint,
     softmax_xent_chunked,
     stack_entry,
     swiglu,
@@ -57,10 +59,17 @@ class TransformerConfig:
     vocab: int
     head_dim: Optional[int] = None  # defaults to d_model // n_heads
     qkv_bias: bool = False  # qwen family
-    window: Optional[int] = None  # sliding-window attention, every layer
+    window: Optional[int] = None  # sliding-window attention (mistral family)
+    swa_every: int = 1  # 1 = every layer windowed; n>1: 1 in n full attention
     rope_theta: float = 10_000.0
     tie_embeddings: bool = False
     norm_eps: float = 1e-6
+    # Frontend stubs (vlm/audio): number of pre-embedded positions prepended
+    # to the token stream; their embeddings arrive via batch["patches"].
+    prefix_embeds: int = 0
+    # The reference's sequence-sharded residual stream (Megatron-SP): a
+    # layout hint, the identity on one card.
+    sp_residuals: bool = False
 
     @property
     def hd(self) -> int:
@@ -73,6 +82,19 @@ class TransformerConfig:
     @property
     def kv_dim(self) -> int:
         return self.n_kv_heads * self.hd
+
+    def layer_window(self, layer_idx: int) -> Optional[int]:
+        if self.window is None:
+            return None
+        if self.swa_every <= 1:
+            return self.window
+        return None if (layer_idx % self.swa_every == self.swa_every - 1) else self.window
+
+    @property
+    def uniform_window(self) -> Optional[int]:
+        """The window if it is the same in every layer, else None."""
+        ws = {self.layer_window(i) for i in range(self.n_layers)}
+        return None if len(ws) > 1 else next(iter(ws))
 
     def param_count(self) -> int:
         """The reference's count (``transformer.py:92-98``): the init's leaf
@@ -163,37 +185,61 @@ def param_specs(cfg: TransformerConfig) -> Dict[str, Any]:
 # ---------------------------------------------------------------------------
 
 
-def _block_apply(cfg: TransformerConfig, w, x, positions):
+def _res_hint(x, cfg: TransformerConfig):
+    seq = "seq" if (cfg.sp_residuals and x.shape[1] > 1) else None
+    return shard_hint(x, "batch", seq, None)
+
+
+def _block_apply(cfg: TransformerConfig, w, x, positions, window):
     """One decoder block (pre-norm GQA attention + SwiGLU MLP)."""
     b, s, _ = x.shape
     h = rms_norm(x, w["attn_norm"], cfg.norm_eps)
     q, k, v = _qkv(w, h, cfg)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    o = attn.attend(q, k, v, positions, positions, causal=True, window=cfg.window)
-    x = x + linear(o.reshape(b, s, cfg.q_dim), w["wo"])
+    o = attn.attend(q, k, v, positions, positions, causal=True, window=window)
+    x = _res_hint(x + linear(o.reshape(b, s, cfg.q_dim), w["wo"]), cfg)
     h = rms_norm(x, w["mlp_norm"], cfg.norm_eps)
-    return x + swiglu(h, w["w1"], w["w3"], w["w2"])
+    return _res_hint(x + swiglu(h, w["w1"], w["w3"], w["w2"]), cfg)
+
+
+def _input_embeds(cfg: TransformerConfig, params, batch, mat: Materializer):
+    """Token rows, after the modality prefix when ``prefix_embeds > 0``
+    (``batch["patches"]``, precomputed) -> (x [B, S, D], positions [B, S])."""
+    tokens = batch["tokens"]
+    b = tokens.shape[0]
+    x = embed_lookup(params["embed"], tokens, mat)
+    if cfg.prefix_embeds:
+        x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
+    x = _res_hint(x, cfg)
+    s = x.shape[1]
+    positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
+    return x, positions
 
 
 def forward(cfg: TransformerConfig, params, batch, mat: Materializer) -> torch.Tensor:
-    """Token stream -> final hidden states [B, S, D] (pre-head)."""
-    if "patches" in batch:
-        raise NotImplementedError("modality-prefix embeddings are not ported yet (ROADMAP A10)")
-    tokens = batch["tokens"]
-    b, s = tokens.shape
-    x = embed_lookup(params["embed"], tokens, mat)
-    positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
-    x = scan_blocks(lambda carry, w: _block_apply(cfg, w, carry, positions),
+    """Token stream (after any prefix) -> final hidden states [B, S, D]
+    (pre-head), each layer with its own window (``cfg.layer_window``)."""
+    x, positions = _input_embeds(cfg, params, batch, mat)
+    x = scan_blocks(lambda carry, w, i: _block_apply(cfg, w, carry, positions,
+                                                     cfg.layer_window(i)),
                     params["blocks"], x, mat)
     return rms_norm(x, mat.leaf(params["final_norm"]), cfg.norm_eps)
 
 
 def loss(cfg: TransformerConfig, params, batch, mat: Materializer) -> torch.Tensor:
-    """Mean next-token cross-entropy (over ``batch["mask"]`` where given)."""
+    """Mean next-token cross-entropy (over ``batch["mask"]`` where given);
+    the prefix positions carry no target."""
     hidden = forward(cfg, params, batch, mat)
-    return softmax_xent_chunked(hidden, _head_weight(cfg, params, mat), batch["labels"],
-                                batch.get("mask"))
+    labels, mask = batch["labels"], batch.get("mask")
+    if cfg.prefix_embeds:
+        b = labels.shape[0]
+        labels = torch.cat([labels.new_zeros((b, cfg.prefix_embeds)), labels], dim=1)
+        if mask is None:
+            mask = torch.ones(batch["labels"].shape, dtype=torch.float32, device=labels.device)
+        mask = torch.cat([torch.zeros((b, cfg.prefix_embeds), dtype=torch.float32,
+                                      device=labels.device), mask.float()], dim=1)
+    return softmax_xent_chunked(hidden, _head_weight(cfg, params, mat), labels, mask)
 
 
 # ---------------------------------------------------------------------------
@@ -229,12 +275,13 @@ def init_decode_state(cfg: TransformerConfig, batch: int, max_len: int,
 
 def prefill(cfg: TransformerConfig, params, batch, mat: Materializer,
             cache: attn.KVCache) -> Tuple[attn.KVCache, torch.Tensor]:
-    """Run the prompt, fill a new cache shaped like ``cache``, return the
-    logits of the last position [B, 1, V]."""
-    tokens = batch["tokens"]
-    b, s = tokens.shape
-    x = embed_lookup(params["embed"], tokens, mat)
-    positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
+    """Run the prompt (after any prefix), fill a new cache shaped like
+    ``cache``, return the logits of the last position [B, 1, V].  Every
+    layer attends with ``cfg.uniform_window``, as the reference's prefill
+    does (None, full attention, when the windows are mixed)."""
+    x, positions = _input_embeds(cfg, params, batch, mat)
+    b, s = positions.shape
+    window = cfg.uniform_window
     buf = cache.buf_len
     new = attn.init_cache(cfg.n_layers, b, buf, cfg.n_kv_heads, cfg.hd, cache.k.dtype,
                           x.device)
@@ -245,7 +292,7 @@ def prefill(cfg: TransformerConfig, params, batch, mat: Materializer,
         q, k, v = _qkv(w, h, cfg)
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-        o = attn.attend(q, k, v, positions, positions, causal=True, window=cfg.window)
+        o = attn.attend(q, k, v, positions, positions, causal=True, window=window)
         x = x + linear(o.reshape(b, s, cfg.q_dim), w["wo"])
         h = rms_norm(x, w["mlp_norm"], cfg.norm_eps)
         x = x + swiglu(h, w["w1"], w["w3"], w["w2"])

@@ -50,6 +50,14 @@ torch.set_num_threads(1)
 PORTED_CELLS = {("qwen2.5-3b", "train_4k"), ("qwen2.5-3b", "prefill_32k"),
                 ("qwen2.5-3b", "decode_32k"), ("recurrentgemma-2b", "prefill_32k"),
                 ("recurrentgemma-2b", "decode_32k"), ("recurrentgemma-2b", "long_500k")}
+# the decoder-only zoo: every cell the reference runs (long_500k for the two
+# sliding-window archs only)
+PORTED_CELLS |= {(a, s) for a in ("h2o-danube-3-4b", "qwen1.5-110b", "mistral-nemo-12b",
+                                  "internvl2-1b", "dbrx-132b", "mixtral-8x7b")
+                 for s in ("train_4k", "prefill_32k", "decode_32k")}
+PORTED_CELLS |= {("h2o-danube-3-4b", "long_500k"), ("mixtral-8x7b", "long_500k")}
+FULL_ATTENTION = {"qwen2.5-3b", "qwen1.5-110b", "mistral-nemo-12b", "internvl2-1b",
+                  "dbrx-132b"}
 
 
 class StubMesh:
@@ -204,7 +212,7 @@ def test_all_skips_every_unported_cell_by_name():
             reason = dryrun.skip_reason(arch_id, shape)
             if reason is None:
                 ran.add((arch_id, name))
-            elif (arch_id, name) == ("qwen2.5-3b", "long_500k"):
+            elif arch_id in FULL_ATTENTION and name == "long_500k":
                 assert "full attention" in reason
             else:
                 assert "ROADMAP A10" in reason, (arch_id, name, reason)

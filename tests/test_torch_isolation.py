@@ -169,9 +169,9 @@ def test_population_runtime_without_a_card_raises_instead_of_using_the_cpu(monke
 def test_unported_archs_and_families_name_the_roadmap():
     assert get_arch("qwen2.5-3b").ID == "qwen2.5-3b"
     with pytest.raises(KeyError, match="ROADMAP"):
-        get_arch("mixtral-8x7b")
+        get_arch("xlstm-350m")
     with pytest.raises(KeyError, match="ROADMAP"):
-        get_family("moe")
+        get_family("xlstm")
 
 
 def test_partitioned_data_without_a_card_raises_instead_of_using_the_cpu(monkeypatch):

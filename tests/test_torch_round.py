@@ -227,13 +227,22 @@ def test_qparam_always_comes_back_decoded_and_grafted():
 
 
 def test_prefix_embeds_raise_naming_the_roadmap():
-    cfg = _cfg("transformer")
-    params = tr.init(prng.PRNGKey(0), cfg, "cpu")
-    batch = dict(tokens=torch.zeros((1, 4), dtype=torch.int64),
-                 labels=torch.zeros((1, 4), dtype=torch.int64),
-                 patches=torch.zeros((1, 2, 32)))
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        tr.loss(cfg, params, batch, materialize.OMCMaterializer())
+    """The VLM prefix (``prefix_embeds``, ``batch["patches"]``): the eval's
+    loss, prefix positions masked out, equals the reference's."""
+    jcfg = jtr.TransformerConfig(n_layers=2, d_model=32, n_heads=2, n_kv_heads=1, d_ff=64,
+                                 vocab=64, prefix_embeds=3)
+    cfg = tr.TransformerConfig(**{k: getattr(jcfg, k) for k in tr.TransformerConfig.__dataclass_fields__})
+    js = jax.jit(lambda k: jstate.init_state(k, jtr, jcfg, JOMC.parse("S1E3M7"),
+                                             joptim.fedavg(1.0)))(jax.random.PRNGKey(0))
+    st = interop.state_from_numpy(jax.device_get(js), device="cpu")
+    b = _batches("transformer", seed=9)[0]
+    b["patches"] = np.random.default_rng(9).standard_normal((4, 3, 32)).astype(np.float32)
+    want = float(jax.jit(jround.make_eval_fn(jtr, jcfg))(js.params, _jax_batch(b)))
+    got = make_eval_fn(tr, cfg)(st.params, _torch_batch(b))
+    np.testing.assert_allclose(got.item(), want, rtol=1e-5)
+    b.pop("patches")
+    with pytest.raises(KeyError, match="patches"):
+        make_eval_fn(tr, cfg)(st.params, _torch_batch(b))
 
 
 def test_memory_measured_byte_columns_equal_the_reference(monkeypatch, tmp_path):
