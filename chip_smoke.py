@@ -44,7 +44,13 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
      [2560, 256] and [128, 7680]x[7680, 2560]; the zoo's: mixtral's experts
      [8, 4096]x[4096, 14336], [8, 14336]x[14336, 4096] and [40, 4096]x[4096,
      14336], internvl2's [4, 896]x[896, 128] and [4, 896]x[896, 4864], h2o's
-     [4, 3840]x[3840, 960], qwen1.5-110b's [4, 8192]x[8192, 49152]), odd tails [3, 37]x[37, 53]
+     [4, 3840]x[3840, 960], qwen1.5-110b's [4, 8192]x[8192, 49152]; phase
+     22's: xlstm-350m's [4, 1024]x[1024, 4096], [4, 2048]x[2048, 2048],
+     [4, 2048]x[2048, 8] (w_if, N = 8), [4, 2048]x[2048, 1024], and at
+     prefill [128, 2048]x[2048, 8] and [128, 1024]x[1024, 4096];
+     seamless-m4t-medium's [4, 1024]x[1024, 1024], [4, 4096]x[4096, 1024]
+     and its encoder's over 4 x 192 frames, [768, 1024]x[1024, 1024],
+     [768, 1024]x[1024, 4096], [768, 4096]x[4096, 1024]), odd tails [3, 37]x[37, 53]
      in u8 and u32, and per-entry (s, b) of a doubly stacked leaf, all with
      b != 0: elementwise within 2e-5 * (|A| @ |s*dec(W) + b|), the same bits
      from two launches with a launch on an all-NaN A between them, the
@@ -60,7 +66,8 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
      gives the same bits from two launches with one on all-NaN codes
      between them, and prints its variant.  It is also timed at
      conformer_s' stacked leaf [17, 512, 2048] with per-entry (s, b) in
-     S1E3M7 and in S1E4M14 (the training driver's format).
+     S1E3M7 and in S1E4M14 (the training driver's format), and at an
+     sLSTM block's ``r_gates`` [4, 256, 1024] (phase 22).
      Kernel and plain version are timed with CUDA events (3 warm-ups,
      median of 20, L2 flushed before each launch); ``dequantize``, ``pack``
      and ``fused_aggregate`` also by the profiler's device time alone; beside
@@ -373,10 +380,34 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
      widths at 1 and 2 layers predicts, scaled to the served depth; no plain
      version.  Prints each part's init, prefill and decode ms a token and
      peak memory, and its seconds.
+ 22. The last families at full width (after phase 20): ``serve.run`` at
+     full width and full depth, S1E3M7, batch 4, prompt 32, 16 new tokens:
+     (a) xlstm-350m (24 layers: 3 super blocks of 7 mLSTM blocks and 1
+     sLSTM block, d 1024) with the wire roundtrip, and phase 20's meta
+     prediction for its tree (every leaf's shape, dtype and bytes; the
+     decode step's kernel calls); (b) seamless-m4t-medium (12 + 12 layers,
+     d 1024, vocab 256,256, 192 random frames, the untied head decoded each
+     step).  Counters are zeroed around each serve: ``dequant_matmul`` and
+     ``dequantize`` launch exactly the formula's count, which a CPU dry run
+     at the smoke widths with the full layout predicts (xlstm 132 and 26 a
+     forward pass; seamless 192 and 2 a prefill, 96 and 2 a decode step);
+     no plain version; then prefill(n) + decode against prefill(n + 1) on
+     the card within 5e-4.  (c) Card against CPU at full width on phase
+     4's vocabulary cut, prefill and 1 decode step within 1e-3: xlstm at 8
+     layers (one super block), seamless at 1 + 1 layers.  (d)
+     ``launch.train.run`` on recurrentgemma-2b and on xlstm-350m at full
+     width and depth (S1E4M14, batch 8, 48 tokens, the LM task), 2
+     rounds: each round's ``quantize_stats`` and ``dequantize`` launches
+     are the storage tree's formula (an encode and a decode a compressed
+     leaf, two decodes a stacked entry, the embedding's rows and the tied
+     head), which the same driver on the CPU at the smoke config launches
+     on its own tree; ms a round and peak printed.  (e) griffin's round
+     card against CPU at one super block (3 layers) and phase 12's
+     4,096-token vocabulary, within phase 12's gates.
 
 Each phase's wall seconds are printed on a line of their own.  It then
 prints one JSON line describing each kernel (``launches_by_path`` has the
-main paths of phases 3, 5, 7, 9, 11, 13, 15, 16, 17, 18, 19, 20 and 21) and, last, the
+main paths of phases 3, 5, 7, 9, 11, 13, 15-22) and, last, the
 line
 ``{"ok": true, "device": {...}}``.  f32 matmuls run in full f32: TF32 is
 switched off for matmuls and cuDNN.  Exits non-zero without a CUDA device.
@@ -410,7 +441,7 @@ from repro_torch import compress, scale  # noqa: E402
 from repro_torch.api import codecs, demo, session  # noqa: E402
 from repro_torch.api.session import FLClient, FLSession, ServeSession  # noqa: E402
 from repro_torch.configs import (conformer_s, mixtral_8x7b, qwen2_5_3b,  # noqa: E402
-                                 recurrentgemma_2b)
+                                 recurrentgemma_2b, seamless_m4t_medium, xlstm_350m)
 from repro_torch.core import omc as omc_lib  # noqa: E402
 from repro_torch.core import packing, prng  # noqa: E402
 from repro_torch.core.formats import SIGNED_TWIN, FloatFormat, narrow, widen  # noqa: E402
@@ -442,7 +473,7 @@ from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import quantize as qk  # noqa: E402
 from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.configs.registry import get_arch  # noqa: E402
-from repro_torch.models import conformer, griffin, moe, transformer  # noqa: E402
+from repro_torch.models import conformer, encdec, griffin, moe, transformer, xlstm  # noqa: E402
 from repro_torch.models.registry import get_family  # noqa: E402
 from repro_torch.obs import Obs  # noqa: E402
 from repro_torch.obs import report as obs_report  # noqa: E402
@@ -477,6 +508,19 @@ MIXTRAL = mixtral_8x7b.config()
 DM_ZOO = [(8, MIXTRAL.d_model, MIXTRAL.d_ff), (8, MIXTRAL.d_ff, MIXTRAL.d_model),
           (40, MIXTRAL.d_model, MIXTRAL.d_ff), (4, 896, 128), (4, 896, 4864), (4, 3840, 960),
           (4, 8192, 49152)]
+# phase 22's products: xlstm-350m's w_up / w_gates (and seamless' w1), wq /
+# wk / wv, w_if (N = 8), w_down at decode and w_if and w_up at prefill (M =
+# 128); seamless' attention matrices and w2 at decode, and its encoder's at
+# M = 4 x 192 = 768 frames, on the tile path
+XCFG = xlstm_350m.config()
+SCFG = seamless_m4t_medium.config()
+DM_LAST = [(4, XCFG.d_model, 2 * XCFG.d_inner), (4, XCFG.d_inner, XCFG.d_inner),
+           (4, XCFG.d_inner, 2 * XCFG.n_heads), (4, XCFG.d_inner, XCFG.d_model),
+           (PREFILL, XCFG.d_inner, 2 * XCFG.n_heads), (PREFILL, XCFG.d_model, 2 * XCFG.d_inner),
+           (4, SCFG.d_model, SCFG.d_model), (4, SCFG.d_ff, SCFG.d_model),
+           (768, SCFG.d_model, SCFG.d_model), (768, SCFG.d_model, SCFG.d_ff),
+           (768, SCFG.d_ff, SCFG.d_model)]
+RGATES = (XCFG.n_heads, XCFG.s_head_dim, 4 * XCFG.s_head_dim)  # an sLSTM block's r_gates
 TRAIN_CFG = conformer_s.config()
 TRAIN_LEAF = (TRAIN_CFG.n_layers, TRAIN_CFG.d_model, TRAIN_CFG.d_ff)  # stacked w1 / w2ᵀ
 COHORT = 8
@@ -1105,6 +1149,12 @@ def phase_kernels() -> dict:
         del x
         results["dequantize"].append(check_dequantize(codes, fmt, timer, batch_axes=1))
         del codes
+    # an sLSTM block's r_gates [4, 256, 1024] (phase 22 decodes one a block)
+    x = _inputs(RGATES, FMT, seed=RGATES[1], specials=False)
+    codes = qk.quantize_stats(x, FMT)[0]
+    del x
+    results["dequantize"].append(check_dequantize(codes, FMT, timer))
+    del codes
     torch.cuda.empty_cache()
     stacked = check_stacked_mlp(timer)
     torch.cuda.empty_cache()
@@ -1150,7 +1200,7 @@ def phase_kernels() -> dict:
         results["dequant_matmul"].append(check_dequant_matmul((3, 37, 53), fmt, seed=1))
     results["dequant_matmul"].append(check_dequant_matmul((4, 256, 384), FMT, seed=2,
                                                           entry=(2, 2)))
-    for mkn in DM_SERVE + DM_PREFILL_SPLIT_K + DM_ZOO:
+    for mkn in DM_SERVE + DM_PREFILL_SPLIT_K + DM_ZOO + DM_LAST:
         r = check_dequant_matmul(mkn, FMT, timer, seed=sum(mkn))
         require(mkn not in DM_PREFILL_SPLIT_K or r["grid"][1] > 1,
                 f"dequant_matmul {mkn}: K is not split over a cluster ({r['grid']})")
@@ -1235,7 +1285,7 @@ def serve_full_width(arch: str, more_batches: int, *, layers=None, roundtrip: bo
                   max_memory_allocated=torch.cuda.max_memory_allocated(),
                   launch_counts=ops.launch_counts(), serve_stats=sess.serve_stats())
     report.pop("tokens")
-    for k in ("n_layers", "num_params", "init_ms", "payload_bytes", "fp32_bytes",
+    for k in ("n_layers", "n_enc_layers", "n_dec_layers", "num_params", "init_ms", "payload_bytes", "fp32_bytes",
               "payload_ratio", "roundtrip_ms", "prefill_ms", "decode_ms_per_token", "tok_per_s",
               "more_batches_ms", "max_memory_allocated", "forward_passes", "launch_counts"):
         if k in report:
@@ -1260,21 +1310,25 @@ def phase_serve_griffin() -> dict:
     return served
 
 
-def card_vs_cpu(run: str, family, cfg, cut, decode_steps: int = 2) -> float:
+def card_vs_cpu(run: str, family, cfg, cut, decode_steps: int = 2, frames: int = 0) -> float:
     """Prefill and ``decode_steps`` decode steps of ``cut`` on the card
     (kernels) and on the CPU over ``cut`` decoded once as the plain version
     decodes (:func:`plain_decoded`): each step's logits are the plain path's
     bits, without decoding every weight again at every step.  The largest
-    logit difference must be <= 1e-3."""
+    logit difference must be <= 1e-3.  ``frames``: an encoder-decoder's
+    random frames, the decode state holding that many."""
     gpu = ServeSession(family, cfg, cut)
     cpu = ServeSession(family, cfg, plain_decoded(tree_map(lambda x: x.to("cpu"), cut)))
     g = torch.Generator(device="cuda").manual_seed(2)
     toks = torch.randint(0, cfg.vocab, (4, 32), generator=g, device="cuda")
+    extra = dict(frames=torch.randn((4, frames, cfg.d_model), generator=g, device="cuda")
+                 ) if frames else {}
 
     def steps(sess, tokens, pick=None):
         """The logits of prefill and the decode steps, on the host; the
         decode steps take ``pick``'s tokens (else their own argmax)."""
-        c, lg = sess.prefill(dict(tokens=tokens), sess.init_cache(4, 64))
+        batch = dict(tokens=tokens, **{k: v.to(tokens.device) for k, v in extra.items()})
+        c, lg = sess.prefill(batch, sess.init_cache(4, frames or 64))
         out = [lg.cpu()]
         for i in range(decode_steps):
             tok = (pick[i] if pick else torch.argmax(out[-1][:, -1], dim=-1))[:, None]
@@ -4076,6 +4130,198 @@ def phase_zoo() -> dict:
     return dict(counts=_plus(*counts), parts=parts, times=times, mixtral=mixtral)
 
 
+# ---------------------------------------------------------------------------
+# 22. the last families: xlstm-350m and seamless-m4t-medium served, griffin
+#     and xlstm trained through the driver's round
+# ---------------------------------------------------------------------------
+
+# launches a forward pass: every projection matrix through dequant_matmul;
+# through dequantize the embedding rows, the head and (xlstm) each mLSTM
+# block's conv_w and each sLSTM block's r_gates.  seamless' prefill runs the
+# encoder (6 matrices a layer) and the decoder (10: the cross K/V from the
+# memory once), its decode step the decoder alone (8: the cross K/V cached)
+N_MLSTM = XCFG.n_layers - XCFG.n_slstm
+XLSTM_PER_FORWARD = dict(dequant_matmul=6 * N_MLSTM + 2 * XCFG.n_slstm,
+                         dequantize=2 + N_MLSTM + XCFG.n_slstm)
+SEAMLESS_PREFILL = dict(dequant_matmul=6 * SCFG.n_enc_layers + 10 * SCFG.n_dec_layers,
+                        dequantize=2)
+SEAMLESS_DECODE = dict(dequant_matmul=8 * SCFG.n_dec_layers, dequantize=2)
+LAST_GEN = 16  # phase 22's serves: batch 4, prompt 32, 16 new tokens
+LAST_FRAMES = 4 * (32 + LAST_GEN)  # seamless' frames, as the serve CLI draws them
+# (d): griffin trained at full depth when one round's peak is under 70 GB,
+# else at the deepest whole super block that fits (None: full depth)
+GRIFFIN_TRAIN_DEPTH = (None, "full depth")
+LAST_TRAIN_ROUNDS = 2  # the driver's rounds on each (the first one warms up)
+
+
+def last_cpu_per_forward(arch_id: str) -> tuple:
+    """A CPU dry run at the smoke config's widths with the full config's
+    layout (its layer counts and sLSTM ratio): the plain versions' launches
+    in one prefill and one decode step, batch 2, prompt 4."""
+    arch = get_arch(arch_id)
+    full, family = arch.config(), get_family(arch.FAMILY)
+    layout = {k: getattr(full, k) for k in serve.depth_fields(full)}
+    if arch.FAMILY == "xlstm":
+        layout["slstm_every"] = full.slstm_every
+    cfg = dataclasses.replace(arch.smoke_config(), **layout)
+    storage = compress_params(family.init(prng.PRNGKey(0), cfg, "cpu"),
+                              family.param_specs(cfg), OMCConfig.parse(FMT.name))
+    batch = serve.request_batch(prng.PRNGKey(0), arch.FAMILY, cfg, 2, 4, "cpu", 2)
+    mat = materialize.OMCMaterializer()
+    out = []
+    ops.reset_launch_counts()
+    state, logits = family.prefill(cfg, storage, batch, mat, family.init_decode_state(
+        cfg, 2, 4 * (4 + 2), dtype=torch.float32, device="cpu"))
+    out.append({k[:-len(".ref")]: v for k, v in ops.launch_counts().items()})
+    ops.reset_launch_counts()
+    family.decode_step(cfg, storage, state, torch.argmax(logits[:, -1], -1)[:, None], mat)
+    out.append({k[:-len(".ref")]: v for k, v in ops.launch_counts().items()})
+    return tuple(out)
+
+
+def last_serve(arch_id: str, roundtrip: bool, per_prefill: dict, per_decode: dict) -> dict:
+    """``serve.run`` at full width and full depth; the launches of the
+    prefill and the 16 decode steps exactly the formula's, which the CPU dry
+    run predicts; then prefill(n) + decode against prefill(n + 1) on the
+    card within 5e-4, with a decode state that holds the whole stream."""
+    predicted = last_cpu_per_forward(arch_id)
+    require(predicted == (per_prefill, per_decode), f"{arch_id}: the CPU dry run predicts "
+            f"{predicted}, the formula {(per_prefill, per_decode)}")
+    served = serve_full_width(arch_id, more_batches=0, roundtrip=roundtrip, gen=LAST_GEN)
+    report, sess = served["report"], served["session"]
+    counts = report["launch_counts"]
+    require_per_forward(counts, arch_id, 0, {}, SERVE_KERNELS if roundtrip else ZOO_KERNELS)
+    for op in per_prefill:
+        want = per_prefill[op] + LAST_GEN * per_decode[op]
+        require(counts.get(f"{op}.cuda", 0) == want, f"{arch_id}: {op} launched "
+                f"{counts.get(f'{op}.cuda', 0)} times in a prefill and {LAST_GEN} decode "
+                f"steps, expected {want}: {counts}")
+    err = zoo_prefix_consistency(sess, arch_id, 4, 32, 4 * 33)
+    print(f"  {arch_id}: {per_prefill} a prefill and {per_decode} a decode step, as the CPU "
+          f"dry run at the smoke widths predicts; prefill(n) + decode against prefill(n + 1), "
+          f"max |d| {err:.3g}")
+    served.update(per_prefill=per_prefill, per_decode=per_decode, prefix_err=err)
+    return served
+
+
+def last_card_vs_cpu(xsess, ssess) -> dict:
+    """(c) Card against CPU at full width and cut depth on phase 4's
+    vocabulary cut: xlstm-350m's first super block (7 mLSTM blocks and the
+    sLSTM block, 8 layers), seamless-m4t-medium at 1 + 1 layers (its untied
+    head's first 32,768 columns) over 192 frames; prefill and 1 decode step."""
+    st = xsess.storage
+    cut = dict(embed=vocab_cut(st["embed"]), final_norm=st["final_norm"],
+               super_blocks={part: {k: v[:1] for k, v in leaves.items()}
+                             for part, leaves in st["super_blocks"].items()})
+    cfg8 = dataclasses.replace(XCFG, n_layers=XCFG.slstm_every, vocab=CUT_VOCAB)
+    require((cfg8.n_super, cfg8.n_extra_m) == (1, 0), "xlstm cut")
+    x = card_vs_cpu(f"xlstm-350m, 8 layers, vocab {CUT_VOCAB:,}", xlstm, cfg8, cut,
+                    decode_steps=1)
+    st = ssess.storage
+    head = st["lm_head"]
+    cut = dict(embed=vocab_cut(st["embed"]),
+               lm_head=type(head)(head.codes[:, :CUT_VOCAB].contiguous(), head.s, head.b,
+                                  head.fmt),
+               enc_blocks={k: v[:1] for k, v in st["enc_blocks"].items()},
+               dec_blocks={k: v[:1] for k, v in st["dec_blocks"].items()},
+               **{k: v for k, v in st.items() if k.endswith(("_scale", "_bias"))})
+    cfg1 = dataclasses.replace(SCFG, n_enc_layers=1, n_dec_layers=1, vocab=CUT_VOCAB)
+    s = card_vs_cpu(f"seamless-m4t-medium, 1 + 1 layers, vocab {CUT_VOCAB:,}", encdec, cfg1,
+                    cut, decode_steps=1, frames=LAST_FRAMES)
+    return dict(xlstm=x, seamless=s)
+
+
+def round_formula(params, backend: str = "cuda") -> dict:
+    """B1/B2 launches of one driver round on a tied-head model, from its
+    storage tree: one encode and one decode per compressed leaf at the
+    update; in the forward pass and again in its recompute one decode per
+    stacked entry of each compressed leaf but the embedding (one (s, b) an
+    entry); the embedding's rows and the tied head once each."""
+    comp = [(p, v) for p, v in tree_items(params) if is_compressed(v)]
+    entries = sum(v.s.numel() for p, v in comp if p[0] != "embed")
+    return {f"quantize_stats.{backend}": len(comp),
+            f"dequantize.{backend}": len(comp) + 2 * entries + 2}
+
+
+def last_train(arch_id: str) -> dict:
+    """(d) ``launch.train.run`` at full width (S1E4M14, batch 8, 48 tokens,
+    the LM task over 4,096 tokens), ``LAST_TRAIN_ROUNDS`` rounds; each
+    round's launches the storage tree's formula, which the same driver on
+    the CPU at the smoke config also launches on its own tree."""
+    cpu = train.run(train.parse_args(["--arch", arch_id, "--smoke", "--device", "cpu",
+                                      "--rounds", "1", "--quiet", "--batch", "2", "--seq", "16"]))
+    want_cpu = round_formula(cpu["state"].params, "ref")
+    require(cpu["round_launches"] == [want_cpu], f"{arch_id} on the CPU at the smoke config: "
+            f"{cpu['round_launches']}, the formula {want_cpu}")
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    report = train.run(train.parse_args(["--arch", arch_id, "--rounds", str(LAST_TRAIN_ROUNDS),
+                                         "--quiet"]))
+    counts = ops.launch_counts()
+    want = round_formula(report["state"].params)
+    require(report["round_launches"] == [want] * LAST_TRAIN_ROUNDS,
+            f"{arch_id}: rounds launched {report['round_launches']}, the formula {want}")
+    require(all(math.isfinite(x) and 0 < x < 20 for x in report["losses"]),
+            f"{arch_id}: bad losses {report['losses']}")
+    rep = report["state_bytes"]
+    print(f"  (d) {arch_id}: {rep['num_params']:,} parameters, S1E4M14, batch 8 x 48: round ms "
+          f"{[round(x, 1) for x in report['round_ms']]}, peak "
+          f"{report['max_memory_allocated'] / 1e9:.2f} GB, losses {report['losses']}, "
+          f"launches a round {want} (the formula; on the CPU at the smoke config {want_cpu})")
+    out = dict(round_ms=report["round_ms"], peak=report["max_memory_allocated"],
+               losses=report["losses"], per_round=want, counts=counts,
+               num_params=rep["num_params"])
+    del report
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_last() -> dict:
+    """(a) xlstm-350m served with the wire roundtrip, and phase 20's meta
+    prediction for its tree; (b) seamless-m4t-medium; (c) both card against
+    CPU at cut depth; (d) the driver's rounds on recurrentgemma-2b and
+    xlstm-350m; (e) griffin's round card against CPU at one super block.
+    Counters are zeroed around each serve and each driver run (the main
+    path); the comparisons are not counted."""
+    times, parts, counts = {}, {}, []
+
+    def step(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+        return out
+
+    keys = ("init_ms", "prefill_ms", "decode_ms_per_token", "max_memory_allocated")
+    xs = step("(a) xlstm-350m", last_serve, "xlstm-350m", True, XLSTM_PER_FORWARD,
+              XLSTM_PER_FORWARD)
+    require(xs["report"]["num_params"] == 467_347_624, f"xlstm params {xs['report']['num_params']}")
+    counts.append(xs["report"]["launch_counts"])
+    parts["xlstm-350m"] = {k: xs["report"][k] for k in keys + ("payload_ratio", "roundtrip_ms")}
+    parts["xlstm_meta"] = step("(a) xlstm meta prediction", launch_dryrun_vs_card, "xlstm-350m",
+                               xlstm, XCFG, XLSTM_PER_FORWARD, xs["session"].storage)
+    ss = step("(b) seamless-m4t-medium", last_serve, "seamless-m4t-medium", False,
+              SEAMLESS_PREFILL, SEAMLESS_DECODE)
+    require(ss["report"]["num_params"] == 877_383_680,
+            f"seamless params {ss['report']['num_params']}")
+    counts.append(ss["report"]["launch_counts"])
+    parts["seamless-m4t-medium"] = {k: ss["report"][k] for k in keys}
+    parts["card_vs_cpu"] = step("(c) card against CPU", last_card_vs_cpu, xs["session"],
+                                ss["session"])
+    del xs, ss
+    torch.cuda.empty_cache()
+    for arch_id in ("recurrentgemma-2b", "xlstm-350m"):
+        parts[f"train {arch_id}"] = step(f"(d) train {arch_id}", last_train, arch_id)
+        counts.append(parts[f"train {arch_id}"].pop("counts"))
+    gcfg = dataclasses.replace(GCFG, n_layers=GCFG.pattern_period, vocab=LM_VOCAB)
+    task = make_lm_task(vocab=LM_VOCAB, seq_len=32, num_clients=16, device="cuda")
+    parts["griffin_round_card_vs_cpu"] = step(
+        "(e) griffin round card against CPU", round_card_vs_cpu, "recurrentgemma-2b", griffin,
+        gcfg, "S1E3M7", task.batch(0, 0, 0, 4), 1)
+    print("  parts: " + ", ".join(f"{k} {v:.1f} s" for k, v in times.items()))
+    return dict(counts=_plus(*counts), parts=parts, times=times)
+
+
 def min_ms(fn, reps: int = 3) -> float:
     """Best wall ms of ``fn()`` over ``reps`` calls, the card synchronized."""
     best = math.inf
@@ -4164,6 +4410,8 @@ def main() -> None:
     zoo = timed(21, "the decoder-only zoo at full width", phase_zoo)
     launched = timed(20, "launch and roofline on the card", phase_launch, on_host,
                      scaled.pop("packed"), zoo.pop("mixtral"))
+    torch.cuda.empty_cache()
+    last = timed(22, "the last families at full width", phase_last)
     print(f"all phases: {time.perf_counter() - t0:.1f} s")
     print(json.dumps(kernel_line(kernels, {"serve": served["report"]["launch_counts"],
                                            "serve_griffin": served_g["report"]["launch_counts"],
@@ -4177,7 +4425,8 @@ def main() -> None:
                                            "obs": telemetry["counts"],
                                            "scale": scaled["counts"],
                                            "launch": launched["counts"],
-                                           "zoo": zoo["counts"]})))
+                                           "zoo": zoo["counts"],
+                                           "last": last["counts"]})))
     print(json.dumps(dict(ok=True, device=dict(platform="gpu", kind=torch.cuda.get_device_name(0),
                                                count=torch.cuda.device_count()))))
 

@@ -1,10 +1,6 @@
-"""Architecture registry: ``--arch <id>`` -> config module.
-
-Only the architectures the port has reached are listed in ``ARCHS``:
-xlstm-350m and seamless-m4t-medium are queued in ROADMAP.md (queue A10).
-``ASSIGNED`` keeps the reference's ten dry-run ids in its order, ported or
-not: a caller skips an id that :func:`get_arch` refuses, naming A10.
-"""
+"""Architecture registry: ``--arch <id>`` -> config module (port of
+``repro.configs.registry``): the reference's ten assigned dry-run
+architectures, in its order, and the benchmark-only ``conformer_s``."""
 
 from __future__ import annotations
 
@@ -21,26 +17,27 @@ from . import (
     qwen1_5_110b,
     qwen2_5_3b,
     recurrentgemma_2b,
+    seamless_m4t_medium,
+    xlstm_350m,
 )
 
-ARCHS: Dict[str, ModuleType] = {m.ID: m for m in (
-    qwen2_5_3b, h2o_danube3_4b, qwen1_5_110b, mistral_nemo_12b, internvl2_1b, dbrx_132b,
-    mixtral_8x7b, recurrentgemma_2b, conformer_s)}
-
-# the reference's 10 assigned dry-run architectures (conformer_s is benchmark-only)
-ASSIGNED: List[str] = [
-    "qwen2.5-3b", "h2o-danube-3-4b", "qwen1.5-110b", "mistral-nemo-12b", "internvl2-1b",
-    "seamless-m4t-medium", "dbrx-132b", "mixtral-8x7b", "xlstm-350m", "recurrentgemma-2b",
+_MODULES = [
+    qwen2_5_3b, h2o_danube3_4b, qwen1_5_110b, mistral_nemo_12b,
+    internvl2_1b, seamless_m4t_medium, dbrx_132b, mixtral_8x7b,
+    xlstm_350m, recurrentgemma_2b, conformer_s,
 ]
+
+ARCHS: Dict[str, ModuleType] = {m.ID: m for m in _MODULES}
+
+# the 10 assigned dry-run architectures (conformer_s is benchmark-only)
+ASSIGNED: List[str] = [m.ID for m in _MODULES if m is not conformer_s]
 
 
 def get_arch(arch_id: str) -> ModuleType:
     if arch_id not in ARCHS:
-        raise KeyError(f"arch {arch_id!r} is not ported to repro_torch yet (see ROADMAP.md, "
-                       f"queue A10); ported: {sorted(ARCHS)}")
+        raise KeyError(f"unknown arch {arch_id!r}; have {sorted(ARCHS)}")
     return ARCHS[arch_id]
 
 
 def list_archs() -> List[str]:
-    """The ported architecture ids (the reference lists its whole zoo)."""
     return list(ARCHS)

@@ -9,20 +9,24 @@ rows, a tied head, griffin's ``conv_w``) are decoded on the fly by
 per-token decode latency and throughput.  ``--arch`` is any ported
 servable arch: qwen2.5-3b, h2o-danube-3-4b, mistral-nemo-12b, qwen1.5-110b
 (dense), mixtral-8x7b, dbrx-132b (MoE: every expert matrix through
-``dequant_matmul``, the router decoded), internvl2-1b (VLM) or
-recurrentgemma-2b.  The batch is ``dict(tokens=...)``; the VLM's also
-holds ``patches``, the stubbed vision frontend's embeddings, drawn as the
-reference draws them.  The decode state holds ``4 * (prompt + gen)``
-positions, as the reference sizes it, without the VLM's prefix: the
-reference's quirk, kept so that both CLIs give the same logits (ROADMAP
-C28).
+``dequant_matmul``, the router decoded), internvl2-1b (VLM),
+recurrentgemma-2b, xlstm-350m (``conv_w`` and ``r_gates`` decoded) or
+seamless-m4t-medium (encoder-decoder: the untied head decoded).  The batch
+is ``dict(tokens=...)``; the VLM's also holds ``patches``, the stubbed
+vision frontend's embeddings, and the encoder-decoder's ``frames``, the
+stubbed audio frontend's, drawn as the reference draws them.  The decode
+state holds ``4 * (prompt + gen)`` positions, as the reference sizes it
+(the encoder-decoder: that many frames, a quarter of them decoder slots),
+without the VLM's prefix: the reference's quirk, kept so that both CLIs
+give the same logits (ROADMAP C28).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \\
         --batch 4 --prompt-len 32 --gen 16 --fmt S1E3M7 --wire-roundtrip
 
 ``--layers N`` serves the first N layers at full width: a depth cut for
 the configs whose codes do not fit one card whole (mixtral-8x7b,
-dbrx-132b, qwen1.5-110b).  ``--wire-roundtrip`` first pushes the weights
+dbrx-132b, qwen1.5-110b); the encoder-decoder keeps N encoder and N
+decoder layers.  ``--wire-roundtrip`` first pushes the weights
 through the wire codec
 (``pack`` kernel -> payload bytes -> ``unpack`` kernel -> ``hot_swap``) and
 checks that the served tree came back bit-identical.  ``--device`` defaults
@@ -82,7 +86,7 @@ def build_session(args: argparse.Namespace) -> Tuple[ServeSession, prng.Key, flo
         raise SystemExit(f"{args.arch} ({arch.FAMILY}) has no decode step")
     cfg = arch.smoke_config() if args.smoke else arch.config()
     if args.layers is not None:
-        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+        cfg = dataclasses.replace(cfg, **{k: args.layers for k in depth_fields(cfg)})
     family = get_family(arch.FAMILY)
     key = prng.PRNGKey(args.seed)
     sync(device)
@@ -95,6 +99,12 @@ def build_session(args: argparse.Namespace) -> Tuple[ServeSession, prng.Key, flo
     return ServeSession(family, cfg, storage), key, init_ms
 
 
+def depth_fields(cfg) -> Tuple[str, ...]:
+    """The config's layer counts: ``n_layers``, or the encoder-decoder's
+    ``n_enc_layers`` and ``n_dec_layers``."""
+    return ("n_layers",) if hasattr(cfg, "n_layers") else ("n_enc_layers", "n_dec_layers")
+
+
 def prompt_tokens(key: prng.Key, batch: int, prompt_len: int, vocab: int,
                   device) -> torch.Tensor:
     """The reference's prompts: ``randint(fold_in(key, 1), (batch,
@@ -103,14 +113,18 @@ def prompt_tokens(key: prng.Key, batch: int, prompt_len: int, vocab: int,
 
 
 def request_batch(key: prng.Key, family: str, cfg, batch: int, prompt_len: int,
-                  device) -> Dict[str, torch.Tensor]:
+                  device, gen: int = 0) -> Dict[str, torch.Tensor]:
     """The reference CLI's request: :func:`prompt_tokens`, and for the VLM
-    ``patches = normal(fold_in(key, 2), (batch, prefix_embeds, d_model))``
-    (within ``prng.normal``'s 4 ulp)."""
+    ``patches = normal(fold_in(key, 2), (batch, prefix_embeds, d_model))``,
+    for the encoder-decoder ``frames = normal(fold_in(key, 2), (batch, 4 *
+    (prompt_len + gen), d_model))`` (within ``prng.normal``'s 4 ulp)."""
     out = dict(tokens=prompt_tokens(key, batch, prompt_len, cfg.vocab, device))
     if family == "vlm":
         out["patches"] = prng.normal(prng.fold_in(key, 2),
                                      (batch, cfg.prefix_embeds, cfg.d_model), device)
+    if family == "encdec":
+        out["frames"] = prng.normal(prng.fold_in(key, 2),
+                                    (batch, 4 * (prompt_len + gen), cfg.d_model), device)
     return out
 
 
@@ -120,7 +134,8 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
     log = Logger(quiet=args.quiet)
     sess, key, init_ms = build_session(args)
     storage, cfg, device = sess.storage, sess.cfg, sess.device
-    report: Dict[str, Any] = dict(arch=args.arch, smoke=bool(args.smoke), n_layers=cfg.n_layers,
+    report: Dict[str, Any] = dict(arch=args.arch, smoke=bool(args.smoke),
+                                  **{k: getattr(cfg, k) for k in depth_fields(cfg)},
                                   fmt=OMCConfig.parse(args.fmt).fmt.name,
                                   device=str(device), init_ms=init_ms,
                                   **state_bytes_report(storage))
@@ -141,7 +156,7 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
     del storage
 
     b, s = args.batch, args.prompt_len
-    batch = request_batch(key, get_arch(args.arch).FAMILY, cfg, b, s, device)
+    batch = request_batch(key, get_arch(args.arch).FAMILY, cfg, b, s, device, args.gen)
     cache = sess.init_cache(b, 4 * (s + args.gen), dtype=torch.float32)
     sync(device)
     t0 = time.perf_counter()

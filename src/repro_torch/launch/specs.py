@@ -9,9 +9,6 @@ would live on ``mesh`` (the reference's ``ShapeDtypeStruct(..., sharding=)``).
 A ``CompressedVariable`` keeps its structure: its codes follow the leaf's
 storage spec, its ``(s, b)`` are replicated.  Values that are not tensors
 (host counters, PRNG keys, the decode state's ``length``) pass through.
-
-The families the port lacks (``encdec``, ``xlstm``) raise, naming ROADMAP
-A10.
 """
 
 from __future__ import annotations
@@ -32,14 +29,6 @@ from repro_torch.models.common import (
     _pad_spec,
     resolve_spec,
 )
-
-_NOT_PORTED = ("encdec", "xlstm")
-
-
-def _not_ported(family: str) -> NotImplementedError:
-    return NotImplementedError(f"family {family!r} is not ported to repro_torch yet "
-                               f"(ROADMAP A10)")
-
 
 @dataclasses.dataclass(frozen=True)
 class Sharded:
@@ -76,24 +65,31 @@ def batch_specs(arch_mod, cfg, shape: Shape) -> Dict[str, torch.Tensor]:
     """Model-input stand-ins for one cell (no params, no caches), on meta."""
     b, s = shape.global_batch, shape.seq_len
     fam = arch_mod.FAMILY
-    if fam in _NOT_PORTED:
-        raise _not_ported(fam)
 
     def tok(n):  # the port's token dtype (prng.randint, argmax): int64
         return torch.empty((b, n), dtype=torch.int64, device="meta")
 
-    if fam in ("transformer", "moe", "griffin"):
+    def embeds(n, d):
+        return torch.empty((b, n, d), dtype=torch.float32, device="meta")
+
+    if fam in ("transformer", "moe", "xlstm", "griffin"):
         if shape.kind == "train":
             return dict(tokens=tok(s), labels=tok(s))
         return dict(tokens=tok(s if shape.kind == "prefill" else 1))
     if fam == "vlm":  # the stubbed frontend's patch embeddings, then the tokens
         nt = s - cfg.prefix_embeds
-        patches = torch.empty((b, cfg.prefix_embeds, cfg.d_model), dtype=torch.float32,
-                              device="meta")
+        patches = embeds(cfg.prefix_embeds, cfg.d_model)
         if shape.kind == "train":
             return dict(patches=patches, tokens=tok(nt), labels=tok(nt))
         if shape.kind == "prefill":
             return dict(patches=patches, tokens=tok(nt))
+        return dict(tokens=tok(1))
+    if fam == "encdec":  # the stubbed frontend's frames; the decoder's s // dec_ratio tokens
+        sd = s // cfg.dec_ratio
+        if shape.kind == "train":
+            return dict(frames=embeds(s, cfg.d_model), tokens=tok(sd), labels=tok(sd))
+        if shape.kind == "prefill":
+            return dict(frames=embeds(s, cfg.d_model), tokens=tok(sd))
         return dict(tokens=tok(1))
     raise ValueError(f"no input specs for family {fam}")
 
@@ -202,8 +198,19 @@ def decode_state_axes(family: str, cfg, struct):
 
     if family in ("transformer", "vlm", "moe"):
         return attn.KVCache(k=_KV, v=_KV, pos=_KVPOS, length=())
-    if family in ("encdec", "xlstm"):
-        raise _not_ported(family)
+    if family == "encdec":
+        return dict(self_kv=attn.KVCache(k=_KV, v=_KV, pos=_KVPOS, length=()),
+                    cross_k=_KV, cross_v=_KV, cross_pos=_KVPOS, length=())
+    if family == "xlstm":
+        m = dict(conv=(None, None, "batch", None, "dstate"),
+                 C=(None, None, "batch", None, "dstate", None),
+                 n=(None, None, "batch", None, None),
+                 m=(None, None, "batch", None))
+        axes = dict(mlstm=m, slstm={k: (None, "batch", None, None) for k in ("c", "n", "m", "h")},
+                    length=())
+        if "extra_m" in struct:
+            axes["extra_m"] = {k: v[1:] for k, v in m.items()}
+        return axes
     if family == "griffin":
         axes = dict(
             rec=dict(conv=(None, None, "batch", None, "dstate"),
@@ -219,18 +226,19 @@ def decode_state_axes(family: str, cfg, struct):
 
 
 def annotate_cache(cache, family: str, cfg, mesh):
-    """Storage shardings for a decode state: a transformer's ``KVCache``
-    keeps its class, griffin's dict its keys."""
+    """Storage shardings for a decode state: a ``KVCache`` (the transformer's,
+    the encoder-decoder's self cache) keeps its class, a dict its keys."""
     from repro_torch.models import attention as attn
 
-    axes_tree = decode_state_axes(family, cfg, cache)
-
     def ann(leaf, axes):
+        if isinstance(leaf, attn.KVCache):
+            return attn.KVCache(**{f.name: ann(getattr(leaf, f.name), getattr(axes, f.name))
+                                   for f in dataclasses.fields(leaf)})
         if not isinstance(leaf, torch.Tensor):
             return leaf
         return Sharded(leaf, NamedSharding(mesh, resolve_spec(axes[:leaf.ndim], leaf.shape, mesh)))
 
+    axes_tree = decode_state_axes(family, cfg, cache)
     if isinstance(cache, attn.KVCache):
-        return attn.KVCache(**{f.name: ann(getattr(cache, f.name), getattr(axes_tree, f.name))
-                               for f in dataclasses.fields(cache)})
+        return ann(cache, axes_tree)
     return tree_map(ann, cache, axes_tree)

@@ -23,11 +23,11 @@ recompute) and re-compresses the updated leaves with ``quantize_stats``.
 ``--device cpu`` is given.  On the card it runs with
 ``torch.use_deterministic_algorithms(True)`` (and cuBLAS's deterministic
 workspace), so that a resumed run replays the uninterrupted one bit for
-bit.  The transformer and MoE families train on the LM task (``--arch
-qwen2.5-3b``, ``--arch mixtral-8x7b``), IID or, with ``--non-iid``, with
-each client's transitions re-weighted by a Dirichlet draw; griffin and
-xlstm wait for their ``forward``/``loss`` (ROADMAP A10), and the VLM has
-no task, as in the reference.
+bit.  The transformer, MoE, griffin and xlstm families train on the LM
+task (``--arch qwen2.5-3b``, ``mixtral-8x7b``, ``recurrentgemma-2b``,
+``xlstm-350m``) over ``min(vocab, 4096)`` tokens, IID or, with
+``--non-iid``, with each client's transitions re-weighted by a Dirichlet
+draw; the VLM and the encoder-decoder have no task, as in the reference.
 """
 
 from __future__ import annotations
@@ -83,10 +83,7 @@ def make_task(arch, cfg, seq: int, num_clients: int, iid: bool, seed: int, devic
         task = make_frame_task(d_in=cfg.d_in, n_classes=cfg.n_classes, seq_len=seq,
                                num_clients=num_clients, iid=iid, seed=seed, device=str(device))
         return task.batch
-    if fam in ("xlstm", "griffin"):
-        raise NotImplementedError(
-            f"{arch.ID} ({fam}) has no forward/loss in the port yet (ROADMAP A10)")
-    if fam in ("transformer", "moe"):
+    if fam in ("transformer", "moe", "xlstm", "griffin"):
         task = make_lm_task(vocab=min(cfg.vocab, 4096), seq_len=seq, num_clients=num_clients,
                             iid=iid, seed=seed, device=str(device))
         return task.batch

@@ -112,8 +112,10 @@ def cache_insert(layer_k, layer_v, layer_pos, k_new, v_new, position: int, ring:
 
 
 def decode_attend(q, layer_k, layer_v, layer_pos, q_position: int, *,
-                  window: Optional[int] = None) -> torch.Tensor:
-    """Single-token causal attention of q [B, 1, H, hd] against one layer's cache."""
+                  window: Optional[int] = None, causal: bool = True) -> torch.Tensor:
+    """Single-token attention of q [B, 1, H, hd] against one layer's cache
+    (``causal=False`` for cross-attention to an encoder's memory: every
+    filled slot is visible whatever its position)."""
     q_pos = torch.full((q.shape[0], 1), q_position, dtype=torch.int32, device=q.device)
-    bias = _mask_bias(q_pos, layer_pos, causal=True, window=window, k_valid=layer_pos >= 0)
+    bias = _mask_bias(q_pos, layer_pos, causal=causal, window=window, k_valid=layer_pos >= 0)
     return _grouped_attention(q, layer_k, layer_v, bias)

@@ -279,6 +279,11 @@ def swiglu(x, w1, w3, w2):
     return linear(F.silu(linear(x, w1)) * linear(x, w3), w2)
 
 
+def gelu_mlp(x, w1, b1, w2, b2):
+    """The encoder-decoder's MLP: gelu(x@w1 + b1) @ w2 + b2 (tanh gelu)."""
+    return linear(gelu(linear(x, w1) + b1), w2) + b2
+
+
 def stack_entry(tree, i: int):
     """Entry ``i`` of every stacked leaf of a flat dict (tensor or
     ``CompressedVariable``, which indexes its codes and (s, b) together)."""
@@ -356,30 +361,47 @@ def softmax_xent_chunked(hidden: torch.Tensor, head_w: torch.Tensor, labels: tor
     return loss_sum / torch.clamp(count, min=1.0)
 
 
-def scan_blocks(block_fn: Callable, stacked_params, x, mat: Materializer):
+def unstack(stacked_params) -> list:
+    """The entries of a tree's stacked leaves along axis 0, one tree each,
+    every leaf unbound once (a tensor, ``CompressedVariable`` or ``QParam``):
+    a doubly stacked leaf ``[n_super, per_super, ...]`` gives ``n_super``
+    stacks that :func:`scan_blocks` unbinds again."""
+    slices = tree_map(lambda a: a.unbind(0), stacked_params)
+    n = len(next(tree_items(slices))[1])
+    return [tree_map(lambda a: a[i], slices) for i in range(n)]
+
+
+def layer_call(block_fn: Callable, stored, x, mat: Materializer, i: int = 0,
+               operands: Sequence[str] = ()):
+    """``block_fn(x, mat(stored, operands), i)``, materialized inside its own
+    ``checkpoint`` (non-reentrant) when gradients are taken, so that the
+    layer's decoded weights and activations are recomputed in the backward
+    pass instead of kept: the reference's remat around each scan step.
+    ``operands`` names the matmul operands that serving keeps in code form
+    (a training ``QParam`` is always decoded)."""
+
+    def body(carry, idx):
+        return block_fn(carry, mat(stored, operands=operands), idx)
+
+    if torch.is_grad_enabled():
+        return checkpoint(body, x, i, use_reentrant=False)
+    return body(x, i)
+
+
+def scan_blocks(block_fn: Callable, stacked_params, x, mat: Materializer,
+                operands: Sequence[str] = ()):
     """Loop over stacked layer params: ``carry = block_fn(carry, w, i)``, ``i``
     the layer's index.  The carry is a tensor or a tuple of tensors.
 
-    Each layer is materialized inside its own ``checkpoint`` (non-reentrant),
-    so its decoded weights and activations are not kept for the backward
-    pass but recomputed there — the reference's remat around each scan step.
-    The stacked leaves are unbound once: their gradient is then one stack
-    of the per-layer gradients, not a full-size zero-filled tensor per layer.
-    A leaf is a tensor or anything else with ``unbind`` (a
+    Each layer runs through :func:`layer_call`.  The stacked leaves are
+    unbound once (:func:`unstack`): their gradient is then one stack of the
+    per-layer gradients, not a full-size zero-filled tensor per layer.  A
+    leaf is a tensor or anything else with ``unbind`` (a
     ``CompressedVariable``, the training materializer's ``QParam``), so that
     a layer's codes are decoded inside its ``checkpoint`` and again in the
     recompute.
     """
-    slices = tree_map(lambda a: a.unbind(0), stacked_params)
-    n = len(next(tree_items(slices))[1])
-
-    def body(carry, i):
-        return block_fn(carry, mat(tree_map(lambda a: a[i], slices)), i)
-
-    for i in range(n):
-        if torch.is_grad_enabled():
-            x = checkpoint(body, x, i, use_reentrant=False)
-        else:
-            x = body(x, i)
+    for i, stored in enumerate(unstack(stacked_params)):
+        x = layer_call(block_fn, stored, x, mat, i, operands)
     return x
 

@@ -2,13 +2,15 @@
 recurrent blocks and local attention in a repeating (recurrent, recurrent,
 attention) pattern, each followed by a GeGLU MLP (arXiv:2402.19427).
 
-Serving only: ``prefill`` and ``decode_step`` over a dict decode state (the
-recurrent blocks' conv carry and RG-LRU state, the attention blocks' ring
-cache, the host-int ``length``); ``forward``/``loss`` wait for the training
-of other families.  Parameters keep the reference's tree: ``embed``,
+Training (``forward``/``loss``: each block through ``common.layer_call``,
+under its own ``checkpoint`` when gradients are taken, and the chunked
+cross-entropy against the tied head) and serving (``prefill`` and
+``decode_step`` over a dict decode state: the recurrent blocks' conv carry
+and RG-LRU state, the attention blocks' ring cache, the host-int
+``length``).  Parameters keep the reference's tree: ``embed``,
 ``super_blocks/{rec, att}``, ``extra_rec`` and ``final_norm``, with the
 recurrent leaves of the super blocks stacked on two axes
-``[n_super, rec_per_super, ...]``.
+``[n_super, rec_per_super, ...]`` (unbound per entry in training).
 
 Every projection matrix (``REC_OPERANDS``, ``ATT_OPERANDS``) goes through
 ``common.linear``: over OMC storage it streams its codes through the
@@ -44,10 +46,14 @@ from .common import (
     embed_lookup,
     gelu,
     init_layers,
+    layer_call,
     linear,
     rms_norm,
+    scan_blocks,
     shard_hint,
+    softmax_xent_chunked,
     stack_entry,
+    unstack,
     wspec,
 )
 
@@ -310,6 +316,41 @@ def att_block(cfg: GriffinConfig, w, x, positions, cache_slice=None, position=No
     x = x + linear(o.reshape(b, s, cfg.n_heads * cfg.hd), w["wo"])
     x = (x + _mlp(cfg, w, x)).to(dtype_in)
     return x, new_cache
+
+
+# ---------------------------------------------------------------------------
+# training: forward and loss
+# ---------------------------------------------------------------------------
+
+
+def forward(cfg: GriffinConfig, params, batch, mat: Materializer) -> torch.Tensor:
+    """Tokens -> final hidden states [B, S, D] (pre-head): per super block
+    its recurrent stack and its attention block, then ``extra_rec``."""
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    x = shard_hint(embed_lookup(params["embed"], tokens, mat), "batch", None, None)
+    positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
+
+    def r_layer(c, w, i):
+        return rec_block(cfg, w, c)[0]
+
+    def a_layer(c, w, i):
+        return att_block(cfg, w, c, positions)[0]
+
+    sb = params["super_blocks"]
+    for rec, att in zip(unstack(sb["rec"]), unstack(sb["att"])):
+        x = scan_blocks(r_layer, rec, x, mat)
+        x = layer_call(a_layer, att, x, mat)
+    if cfg.n_extra_rec:
+        x = scan_blocks(r_layer, params["extra_rec"], x, mat)
+    return rms_norm(x, mat.leaf(params["final_norm"]), cfg.norm_eps)
+
+
+def loss(cfg: GriffinConfig, params, batch, mat: Materializer) -> torch.Tensor:
+    """Mean next-token cross-entropy (over ``batch["mask"]`` where given)."""
+    hidden = forward(cfg, params, batch, mat)
+    return softmax_xent_chunked(hidden, _head_weight(cfg, params, mat), batch["labels"],
+                                batch.get("mask"))
 
 
 # ---------------------------------------------------------------------------

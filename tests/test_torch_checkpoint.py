@@ -247,16 +247,17 @@ def test_driver_without_a_card_raises(monkeypatch):
 def test_driver_lm_families_wait_for_the_lm_task():
     """The transformer family trains on the LM task (qwen2.5-3b's smoke
     config), IID and, with ``--non-iid``, on Dirichlet-skewed clients, whose
-    losses differ from the IID run's; griffin still waits for its
-    forward/loss (ROADMAP A10)."""
+    losses differ from the IID run's; griffin trains on the same task
+    (tests/test_torch_train_recurrent.py holds its round to the reference's)."""
     argv = ["--arch", "qwen2.5-3b", "--smoke", "--device", "cpu", "--rounds", "2", "--batch",
             "2", "--seq", "16", "--quiet"]
     report = train.run(train.parse_args(argv))
     assert report["arch"] == "qwen2.5-3b" and len(report["losses"]) == 2
     assert all(np.isfinite(report["losses"])) and report["losses"][0] > 0
     assert report["round_launches"][0].get("quantize_stats.ref", 0) > 0
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        train.run(train.parse_args(["--arch", "recurrentgemma-2b", "--smoke", "--device", "cpu"]))
+    griffin = train.run(train.parse_args(["--arch", "recurrentgemma-2b"] + argv[2:]))
+    assert len(griffin["losses"]) == 2 and all(np.isfinite(griffin["losses"]))
+    assert griffin["round_launches"][0].get("quantize_stats.ref", 0) > 0
     skewed = train.run(train.parse_args(argv + ["--non-iid"]))
     assert len(skewed["losses"]) == 2 and all(np.isfinite(skewed["losses"]))
     assert skewed["round_launches"][0].get("quantize_stats.ref", 0) > 0

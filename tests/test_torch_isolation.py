@@ -167,11 +167,19 @@ def test_population_runtime_without_a_card_raises_instead_of_using_the_cpu(monke
 
 
 def test_unported_archs_and_families_name_the_roadmap():
-    assert get_arch("qwen2.5-3b").ID == "qwen2.5-3b"
-    with pytest.raises(KeyError, match="ROADMAP"):
-        get_arch("xlstm-350m")
-    with pytest.raises(KeyError, match="ROADMAP"):
-        get_family("xlstm")
+    """Every assigned id and family of the reference resolves in the port
+    (nothing is left unported); an unknown one raises ``KeyError``."""
+    from repro_torch.configs.registry import ASSIGNED
+
+    for arch_id in ASSIGNED + ["conformer_s"]:
+        assert get_arch(arch_id).ID == arch_id
+        assert get_family(get_arch(arch_id).FAMILY).__name__.startswith("repro_torch.models.")
+    for fam in ("transformer", "vlm", "moe", "xlstm", "griffin", "encdec", "conformer"):
+        assert hasattr(get_family(fam), "init")
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_arch("not-an-arch")
+    with pytest.raises(KeyError, match="unknown model family"):
+        get_family("not-a-family")
 
 
 def test_partitioned_data_without_a_card_raises_instead_of_using_the_cpu(monkeypatch):

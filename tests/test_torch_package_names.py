@@ -60,4 +60,31 @@ def test_assigned_archs_are_the_references():
     import repro_torch.configs.registry
 
     assert repro_torch.configs.registry.ASSIGNED == repro.configs.registry.ASSIGNED
-    assert set(repro_torch.configs.registry.list_archs()) <= set(repro.configs.registry.list_archs())
+    assert repro_torch.configs.registry.list_archs() == repro.configs.registry.list_archs()
+
+
+@pytest.mark.parametrize("pkg", ["models", "configs"])
+def test_models_and_configs_hold_every_reference_module(pkg):
+    """The port's ``models/`` and ``configs/`` hold a module for each of the
+    reference's; each family module exposes the reference's public
+    functions (``init``, ``param_specs``, ``loss`` and, where servable,
+    ``prefill``, ``decode_step``, ``init_decode_state``)."""
+    import pkgutil
+
+    ref, port = (importlib.import_module(f"{p}.{pkg}") for p in ("repro", "repro_torch"))
+    names = {m.name for m in pkgutil.iter_modules(ref.__path__)}
+    assert names == {m.name for m in pkgutil.iter_modules(port.__path__)}
+    if pkg == "configs":
+        return
+    from repro.models import registry as jreg
+    from repro_torch.models import registry as reg
+
+    assert reg.SERVABLE == jreg.SERVABLE
+    for fam, jmod in jreg._FAMILIES.items():
+        mod = reg.get_family(fam)
+        assert mod.__name__ == jmod.__name__.replace("repro.", "repro_torch.", 1)
+        want = {"init", "param_specs", "loss"}
+        if fam in jreg.SERVABLE:
+            want |= {"prefill", "decode_step", "init_decode_state"}
+        assert want <= {n for n in dir(jmod) if callable(getattr(jmod, n))}
+        assert all(callable(getattr(mod, n, None)) for n in want), (fam, want)
