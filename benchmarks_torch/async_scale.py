@@ -19,6 +19,7 @@ data stream and Pareto heavy-tail latency trace:
 
     python3 benchmarks_torch/async_scale.py            # conformer_s at full width, on the card
     python3 benchmarks_torch/async_scale.py --smoke    # the reference's CI config, on the CPU
+    python3 benchmarks_torch/async_scale.py --reference-row [--device cpu]
 
 ``--smoke`` is the reference's smoke run (its 2-layer, d 32 conformer,
 cohort 8, buffer 4, 3 rounds, batch 1, 8 frames) through the plain
@@ -26,8 +27,14 @@ versions.  Without it the model is conformer_s' published config (17
 layers, d 512) on the card at the reference's cohort 64 and buffer 16: the
 engine's round holds the cohort's 64 trained f32 models once, in their
 stack, beside the trained models the async runner keeps cached, and an
-H100 80GB peaks at about 53 GB.  The row records the process's peak device
-memory.  Writes ``experiments/bench_torch/async_scale.json``; ``--trace``
+H100 80GB peaks at about 53 GB.  ``--reference-row`` runs the reference's
+default row (``REFERENCE_ROW``: its 2-layer, d 32 conformer at cohort 64,
+buffer 16, 5 rounds, batch 1, 8 frames, Pareto 1.5) on the card, or with
+``--device cpu`` on the CPU, so that its columns can be set beside the
+reference's; it writes ``async_scale_reference_row.json``.  The row
+records the process's peak device memory.  Writes
+``experiments/bench_torch/async_scale.json`` (``async_scale_smoke.json``
+with ``--smoke``); ``--trace``
 also records the run's telemetry (``repro_torch.obs``: a wall span per sync
 round and per flush, a virtual span per async client round, a metric bundle
 per flush) into ``experiments/obs/async_scale.{obs.jsonl,perfetto.json}``.
@@ -61,6 +68,9 @@ from repro_torch.models import conformer as cf  # noqa: E402
 from repro_torch.obs import Obs, null_span  # noqa: E402
 
 SMOKE_CFG = cf.ConformerConfig(n_layers=2, d_model=32, n_heads=4, d_ff=64, n_classes=16, d_in=8)
+# the reference's default row: its CFG (SMOKE_CFG here) at its run()'s defaults
+REFERENCE_ROW = dict(cohort=64, buffer_goal=16, rounds=5, batch=1, seq=8, alpha=1.5,
+                     fmt="S1E3M7")
 
 
 def _median(xs):
@@ -171,10 +181,19 @@ def bench(cfg, cohort: int, buffer_goal: int, rounds: int, batch: int, seq: int,
 
 
 def run(cohort=64, buffer_goal=16, rounds=5, batch=1, seq=8, alpha=1.5, fmt="S1E3M7", seed=0,
-        smoke=False, trace=False):
+        smoke=False, trace=False, reference_row=False, device=None):
+    """One row.  ``smoke``: the CPU and the 2-layer config; ``reference_row``:
+    the 2-layer config on ``device`` (the card by default); else conformer_s
+    on the card."""
     rounds = max(1, min(rounds, int(os.environ.get("BENCH_ROUNDS", rounds))))
-    device = bench_device(smoke)
-    cfg = SMOKE_CFG if smoke else conformer_s.config()
+    if reference_row:
+        device = torch.device(device or "cuda")
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device is available; pass --device cpu to run the "
+                               "reference's row on the CPU")
+    else:
+        device = bench_device(smoke)
+    cfg = SMOKE_CFG if smoke or reference_row else conformer_s.config()
     obs = Obs(run_name="async_scale") if trace else None
     row = bench(cfg, cohort, buffer_goal, rounds, batch, seq, alpha, fmt, seed, device, obs=obs)
     print_table("Async vs sync under Pareto stragglers (virtual + wall clock)", [row],
@@ -185,8 +204,10 @@ def run(cohort=64, buffer_goal=16, rounds=5, batch=1, seq=8, alpha=1.5, fmt="S1E
     print_table("Quality per wire byte at matched update budget", [row],
                 ["update_budget", "init_loss", "sync_loss", "async_loss", "sync_wire_mb",
                  "async_wire_mb", "sync_quality_per_mb", "async_quality_per_mb"])
-    path = save_result("async_scale", dict(smoke=smoke, fmt=fmt, rounds=rounds, batch=batch,
-                                           seq_len=seq, rows=[row]))
+    name = ("async_scale_reference_row" if reference_row else
+            "async_scale_smoke" if smoke else "async_scale")
+    path = save_result(name, dict(smoke=smoke, fmt=fmt, rounds=rounds, batch=batch, seq_len=seq,
+                                  rows=[row]))
     print(f"wrote {path}")
     if obs is not None:
         paths = obs.flush()
@@ -212,12 +233,22 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--trace", action="store_true",
                     help="record obs telemetry (JSONL + Perfetto under experiments/obs/)")
+    ap.add_argument("--reference-row", action="store_true",
+                    help="the reference's default row (its 2-layer config, cohort 64, buffer "
+                         "16, 5 rounds) on --device")
+    ap.add_argument("--device", default="cuda",
+                    help="the device of --reference-row (default: cuda)")
     args = ap.parse_args(argv)
+    t0 = time.perf_counter()
+    if args.reference_row:
+        rows = run(**REFERENCE_ROW, seed=args.seed, trace=args.trace, reference_row=True,
+                   device=args.device)
+        print(f"\n{rows[0]['device']}: {time.perf_counter() - t0:.1f} s")
+        return 0
     if args.smoke:
         cohort, buffer_goal, rounds = 8, 4, args.rounds or 3
     else:
         cohort, buffer_goal, rounds = args.cohort, args.buffer, args.rounds or 5
-    t0 = time.perf_counter()
     run(cohort=cohort, buffer_goal=buffer_goal, rounds=rounds, batch=args.batch, seq=args.seq,
         alpha=args.alpha, fmt=args.fmt, seed=args.seed, smoke=args.smoke, trace=args.trace)
     print(f"\n{device_name(bench_device(args.smoke))}: {time.perf_counter() - t0:.1f} s")

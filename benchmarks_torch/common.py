@@ -23,7 +23,9 @@ Where it runs:
 The budget knobs are the reference's, by the same environment variables and
 with the same defaults: ``BENCH_ROUNDS`` (24), ``BENCH_CLIENTS`` (8),
 ``BENCH_COHORT`` (4), ``BENCH_BATCH`` (4); the data keeps the reference's
-shape (32 frames a sequence).  Results go to ``experiments/bench_torch/``.
+shape (32 frames a sequence).  Results go to ``experiments/bench_torch/``;
+a process that ran on the card records the card's name and power limit
+beside each payload (``card``, as ``nvidia-smi`` gives them).
 
 Speed: the first ``run_fl`` of a process on a device first runs one untimed
 warm round, so that no row's ``rounds_per_min`` holds the device's cold
@@ -35,8 +37,10 @@ computes it.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
+import subprocess
 import time
 from pathlib import Path
 from typing import Dict, List, Optional
@@ -144,7 +148,23 @@ def bytes_summary(family, cfg, omc: OMCConfig, device="cuda") -> Dict:
     return bytes_report(family.init(prng.PRNGKey(0), cfg, device), omc)
 
 
+@functools.lru_cache(maxsize=1)
+def card() -> str:
+    """The card's name and power limit, as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True, timeout=60).stdout.strip()
+
+
 def save_result(name: str, payload) -> str:
+    """Write ``payload`` to ``OUT_DIR/<name>.json``; if this process has used
+    the card, with ``card`` beside it (a dict's key, or each row's)."""
+    if torch.cuda.is_initialized():
+        if isinstance(payload, dict):
+            payload = dict(payload, card=card())
+        else:
+            payload = [dict(row, card=card()) for row in payload]
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     path = OUT_DIR / f"{name}.json"
     path.write_text(json.dumps(payload, indent=1))

@@ -37,7 +37,8 @@ steps and 30 trained rounds a point; ``--smoke`` is the reference's smoke
 config (6 steps, 4 rounds, 2 eval batches) through the plain versions.
 The transformer LM is the reference's own 2-layer, d 64, vocab 256 config in
 both.  ``--device`` moves either.  Writes
-``experiments/bench_torch/compress_strategies.json`` (sections merge, so
+``experiments/bench_torch/compress_strategies.json``
+(``compress_strategies_smoke.json`` with ``--smoke``; sections merge, so
 ``--static`` and ``--trained`` update one file).
 """
 
@@ -246,12 +247,12 @@ def run_trained(smoke: bool = False, seed: int = 0, device=None):
                 client_lr=sim.client_lr, ef_wins=bool(ef_wins), points=rows)
 
 
-def _merge_save(section_updates):
-    """Update sections of compress_strategies.json, keeping the others."""
-    path = OUT_DIR / "compress_strategies.json"
+def _merge_save(section_updates, name: str):
+    """Update sections of ``<name>.json``, keeping the others."""
+    path = OUT_DIR / f"{name}.json"
     payload = json.loads(path.read_text()) if path.exists() else {}
     payload.update(section_updates)
-    save_result("compress_strategies", payload)
+    save_result(name, payload)
     return payload
 
 
@@ -262,7 +263,7 @@ def run(smoke: bool = False, seed: int = 0, static: bool = True, trained: bool =
         sections.update(run_static(smoke=smoke, seed=seed, device=device))
     if trained:
         sections["trained"] = run_trained(smoke=smoke, seed=seed, device=device)
-    return _merge_save(sections)
+    return _merge_save(sections, "compress_strategies_smoke" if smoke else "compress_strategies")
 
 
 def main(argv=None) -> int:

@@ -404,10 +404,40 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
      on its own tree; ms a round and peak printed.  (e) griffin's round
      card against CPU at one super block (3 layers) and phase 12's
      4,096-token vocabulary, within phase 12's gates.
+ 23. The reference's last scripts on the card.  (a)
+     ``examples_torch/serve_omc.py`` as a subprocess (qwen2.5-3b's smoke
+     config, batch 4, prompt 32, 16 tokens, S1E3M7): exit 0 (the CLI raises
+     on non-finite logits), its 4 x 16 tokens in the vocabulary; then its
+     arguments with ``--wire-roundtrip`` through ``serve.run`` in process:
+     the same tokens, the swap bit-identical, B6 and B2 a forward pass the
+     count a CPU dry run at the smoke config predicts.  (b)
+     ``examples_torch/train_100m.py --full --rounds 6 --ckpt-every 3`` as a
+     subprocess into ``build/scripts/``: conformer_s at 103,535,104
+     parameters in S1E3M7, finite losses, ``ckpt_3`` and ``ckpt_6``, each
+     round's B1 and B2 the storage tree's formula (13 and 389), which the
+     driver on the CPU at the smoke config launches on its own tree; the
+     same command again resumes at round 6, trains no round, and reports
+     the same bytes and checkpoint.  (c)
+     ``examples_torch/compress_strategies.py`` and
+     ``train_under_strategy.py`` at their default arguments, in process on
+     the card and as subprocesses on the CPU: every wire-byte figure the
+     same (neither side runs ``--smoke``: the rounds' bytes depend on the
+     round index and the pipeline's DEFLATE on the data), losses finite.
+     (d) ``benchmarks_torch/async_scale.py --reference-row`` as a
+     subprocess on the card: the virtual-clock and byte columns of the row
+     it writes equal the reference's row, the losses within an absolute
+     2e-3 of it (``REFERENCE_ROW_*``, measured on the reference's code).
+     (e) every ``BENCHES`` and ``TOOLS`` module of ``benchmarks_torch.run``
+     imports, and every ``ARTIFACTS`` file is in the tree and records its
+     card.  The subprocesses of (a)-(d) start just before phase 22 (e),
+     which times nothing, and run beside it (each takes seconds to reach
+     the card and is host-bound); they load phase 1's library: no kernel
+     is built again.  Counters are zeroed around each part's in-process
+     runs; (b)'s launches are its reports', (d)'s are not counted.
 
 Each phase's wall seconds are printed on a line of their own.  It then
 prints one JSON line describing each kernel (``launches_by_path`` has the
-main paths of phases 3, 5, 7, 9, 11, 13, 15-22) and, last, the
+main paths of phases 3, 5, 7, 9, 11, 13, 15-23) and, last, the
 line
 ``{"ok": true, "device": {...}}``.  f32 matmuls run in full f32: TF32 is
 switched off for matmuls and cuDNN.  Exits non-zero without a CUDA device.
@@ -415,6 +445,7 @@ switched off for matmuls and cuDNN.  Exits non-zero without a CUDA device.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import hashlib
@@ -424,7 +455,9 @@ import importlib.util
 import json
 import math
 import os
+import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -4276,13 +4309,15 @@ def last_train(arch_id: str) -> dict:
     return out
 
 
-def phase_last() -> dict:
+def phase_last(before_e=None) -> dict:
     """(a) xlstm-350m served with the wire roundtrip, and phase 20's meta
     prediction for its tree; (b) seamless-m4t-medium; (c) both card against
     CPU at cut depth; (d) the driver's rounds on recurrentgemma-2b and
     xlstm-350m; (e) griffin's round card against CPU at one super block.
     Counters are zeroed around each serve and each driver run (the main
-    path); the comparisons are not counted."""
+    path); the comparisons are not counted.  ``before_e()``, where given,
+    is called just before (e) (which times nothing) and its result returned
+    under ``"before_e"``: phase 23 starts its subprocesses there."""
     times, parts, counts = {}, {}, []
 
     def step(name, fn, *args):
@@ -4313,13 +4348,319 @@ def phase_last() -> dict:
     for arch_id in ("recurrentgemma-2b", "xlstm-350m"):
         parts[f"train {arch_id}"] = step(f"(d) train {arch_id}", last_train, arch_id)
         counts.append(parts[f"train {arch_id}"].pop("counts"))
+    started = before_e() if before_e else None
     gcfg = dataclasses.replace(GCFG, n_layers=GCFG.pattern_period, vocab=LM_VOCAB)
     task = make_lm_task(vocab=LM_VOCAB, seq_len=32, num_clients=16, device="cuda")
     parts["griffin_round_card_vs_cpu"] = step(
         "(e) griffin round card against CPU", round_card_vs_cpu, "recurrentgemma-2b", griffin,
         gcfg, "S1E3M7", task.batch(0, 0, 0, 4), 1)
     print("  parts: " + ", ".join(f"{k} {v:.1f} s" for k, v in times.items()))
-    return dict(counts=_plus(*counts), parts=parts, times=times)
+    return dict(counts=_plus(*counts), parts=parts, times=times, before_e=started)
+
+
+# ---------------------------------------------------------------------------
+# 23. the reference's last scripts on the card
+# ---------------------------------------------------------------------------
+
+SCRIPTS_DIR = ROOT / "build" / "scripts"  # (b)'s checkpoints
+SCRIPTS_ROUNDS, SCRIPTS_EVERY = 6, 3  # (b): train_100m --full cut to 6 rounds
+SCRIPTS_TRAIN = ["--full", "--rounds", str(SCRIPTS_ROUNDS), "--ckpt-every", str(SCRIPTS_EVERY),
+                 "--quiet"]
+SCRIPTS_TRAIN_PARAMS = 103_535_104  # conformer_s
+SCRIPT_TIMEOUT = 600  # seconds a script may take; its process group is killed after
+# (d): the reference's default row as its own code prints it: `PYTHONPATH=src
+# JAX_PLATFORMS=cpu python benchmarks/async_scale.py` at commit 8c82901, on a CPU.
+# Not experiments/bench/async_scale.json, which predates that code (ROADMAP C30).
+REFERENCE_ROW_EXACT = dict(update_budget=320, sync_updates_per_vs=0.8848,
+                           async_updates_per_vs=26.9794, vtime_speedup=30.49,
+                           sync_wire_mb=31.851, async_wire_mb=34.729,
+                           async_stale_fraction=0.9493, async_dropped_fraction=0.0,
+                           peak_in_flight_mb=6.405)
+REFERENCE_ROW_LOSSES = dict(init_loss=3.1152, sync_loss=2.8296, async_loss=2.921)
+REFERENCE_LOSS_GAP = 2e-3  # (d): absolute, each loss of the row against the reference's
+WIRE_RE = re.compile(r"(?:[\w-]+=)?[\d.]+ ?MiB(?: \([\d.]+% of fp32\))?|[\w-]+=\d+B\b")
+LOSS_RE = re.compile(r"loss=(\S+)")
+
+
+def run_script(path: str, args, timeout: int = SCRIPT_TIMEOUT) -> tuple:
+    """``python3 <path> <args>`` from the repo's root, exit 0 required;
+    returns (stdout, seconds).  On a timeout its whole process group (the
+    script and the CLI it starts) is killed."""
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, str(ROOT / path), *args], cwd=ROOT, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise SystemExit(f"chip_smoke FAILED: {path} {args} ran over {timeout} s")
+    require(proc.returncode == 0, f"{path} {args} exited {proc.returncode}: {err[-3000:]}")
+    return out, time.perf_counter() - t0
+
+
+def last_json(out: str) -> dict:
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def builds() -> list:
+    """Every built kernel library under ``build/``, with its mtime."""
+    return sorted((str(p), p.stat().st_mtime_ns)
+                  for p in build.BUILD_ROOT.glob(f"*/{build.LIB_NAME}"))
+
+
+def scripts_serve(job) -> dict:
+    """(a) ``examples_torch/serve_omc.py`` as a subprocess (``job``, the
+    future of its ``run_script``), and its arguments with
+    ``--wire-roundtrip`` through ``serve.run`` in process."""
+    cfg = get_arch("qwen2.5-3b").smoke_config()
+    example = importlib.import_module("examples_torch.serve_omc")
+    argv = example.command(["--wire-roundtrip", "--quiet"])[3:]
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    again = serve.run(serve.parse_args(argv))
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    again.pop("session")
+    require(again["swap_bit_identical"], "serve_omc --wire-roundtrip: swap not bit-identical")
+    out, secs = job.result()
+    report = last_json(out)
+    toks = torch.tensor(report["tokens"])
+    require(report["smoke"] and report["fmt"] == FMT.name and toks.shape == (4, 16)
+            and bool(((toks >= 0) & (toks < cfg.vocab)).all()),
+            f"serve_omc: bad report {({k: report[k] for k in ('smoke', 'fmt', 'tokens')})}")
+    # the CLI raises on non-finite logits, so exit 0 says they were finite
+    require(report["logits_shape"] == [4, 1, cfg.vocab], f"logits {report['logits_shape']}")
+    require(again["tokens"] == report["tokens"],
+            "serve_omc: the in-process run's tokens differ from the script's")
+    want = zoo_formula(cfg)
+    predicted = zoo_cpu_per_forward("qwen2.5-3b", cfg.n_layers)
+    require(predicted == want, f"serve_omc: the CPU dry run at the smoke config predicts "
+            f"{predicted}, the formula {want}")
+    require_per_forward(counts, "serve_omc --wire-roundtrip", 1 + 16, want)
+    print(f"  (a) serve_omc.py: exit 0 in {secs:.1f} s, prefill {report['prefill_ms']:.1f} ms, "
+          f"decode {report['decode_ms_per_token']:.2f} ms a token; with --wire-roundtrip in "
+          f"process: {want} a forward pass over 17 (the CPU dry run's), payload "
+          f"{again['payload_ratio']:.3f} of f32, launches {counts}")
+    return dict(counts=counts, script_s=secs, prefill_ms=report["prefill_ms"],
+                decode_ms_per_token=report["decode_ms_per_token"])
+
+
+def conformer_round_formula(params) -> dict:
+    """B1/B2 launches of one driver round on a conformer tree: one encode
+    and one decode a compressed leaf at the update; in the forward pass one
+    decode a stacked entry of ``blocks`` and one a flat leaf, and the
+    stacked entries again in the recompute."""
+    comp = [(p, v) for p, v in tree_items(params) if is_compressed(v)]
+    stacked = sum(v.s.numel() for p, v in comp if p[0] == "blocks")
+    flat = sum(v.s.numel() for p, v in comp if p[0] != "blocks")
+    return {"quantize_stats.cuda": len(comp), "dequantize.cuda": len(comp) + 2 * stacked + flat}
+
+
+TRAIN_100M_DIR = SCRIPTS_DIR / "train_100m"
+TRAIN_100M_LAST = SCRIPTS_DIR / "train_100m_last"  # the first run's last checkpoint
+
+
+def train_100m_twice() -> tuple:
+    """(b)'s two subprocesses: ``train_100m.py`` with ``SCRIPTS_TRAIN``, a
+    copy of its last checkpoint, then the same command again; returns
+    ``(first stdout, seconds, rerun stdout, seconds)``."""
+    shutil.rmtree(TRAIN_100M_DIR, ignore_errors=True)
+    shutil.rmtree(TRAIN_100M_LAST, ignore_errors=True)
+    argv = SCRIPTS_TRAIN + ["--ckpt-dir", str(TRAIN_100M_DIR)]
+    first = run_script("examples_torch/train_100m.py", argv)
+    shutil.copytree(TRAIN_100M_DIR / f"ckpt_{SCRIPTS_ROUNDS}", TRAIN_100M_LAST)
+    return first + run_script("examples_torch/train_100m.py", argv)
+
+
+def scripts_train(job) -> dict:
+    """(b) ``examples_torch/train_100m.py --full`` cut to 6 rounds as a
+    subprocess, then the same command again (``job``, the future of
+    :func:`train_100m_twice`): it resumes at round 6 and trains no further
+    round."""
+    rounds, every = SCRIPTS_ROUNDS, SCRIPTS_EVERY
+    # the formula on a tree of conformer_s' layout at the smoke widths, which
+    # the driver on the CPU at the smoke config also launches on its own tree
+    cpu = train.run(train.parse_args(["--smoke", "--device", "cpu", "--rounds", "1", "--quiet",
+                                      "--fmt", "S1E3M7"]))
+    require(as_cuda(cpu["round_launches"][0]) == conformer_round_formula(cpu["state"].params),
+            f"the driver on the CPU launched {cpu['round_launches']}")
+    layout = dataclasses.replace(conformer_s.smoke_config(), n_layers=TRAIN_CFG.n_layers)
+    want = conformer_round_formula(init_state(prng.PRNGKey(0), conformer, layout,
+                                              OMCConfig.parse("S1E3M7"), fedavg(1.0),
+                                              device="cpu").params)
+    out, secs, rerun_out, resume_s = job.result()
+    first = last_json(out)
+    require(first["state_bytes"]["num_params"] == SCRIPTS_TRAIN_PARAMS and not first["smoke"]
+            and first["fmt"] == "S1E3M7", f"train_100m: {first['state_bytes']}, "
+            f"smoke {first['smoke']}, fmt {first['fmt']}")
+    require(len(first["losses"]) == rounds
+            and all(math.isfinite(x) and 0 < x < 20 for x in first["losses"]),
+            f"train_100m: losses {first['losses']}")
+    require(first["round_launches"] == [want] * rounds,
+            f"train_100m: rounds launched {first['round_launches']}, the formula {want}")
+    names = sorted(p.name for p in TRAIN_100M_DIR.iterdir() if p.name.startswith("ckpt_"))
+    require(names == sorted(f"ckpt_{r}" for r in range(every, rounds + 1, every)),
+            f"train_100m: checkpoints {names}")
+    rerun = last_json(rerun_out)
+    require(rerun["start_round"] == rounds and rerun["losses"] == []
+            and rerun["round_launches"] == [], f"train_100m rerun: started at "
+            f"{rerun['start_round']}, trained {len(rerun['losses'])} rounds")
+    same = ("arch", "smoke", "fmt", "rounds", "state_bytes", "init_launches", "ckpt_bytes")
+    require(all(rerun[k] == first[k] for k in same)
+            and npz_equal(TRAIN_100M_LAST, TRAIN_100M_DIR / f"ckpt_{rounds}"),
+            f"train_100m rerun: its report or ckpt_{rounds} differs from the first run's")
+    counts = _plus(first["init_launches"], *first["round_launches"], rerun["init_launches"])
+    print(f"  (b) train_100m.py {' '.join(SCRIPTS_TRAIN)}: exit 0 in {secs:.1f} s, "
+          f"{SCRIPTS_TRAIN_PARAMS:,} parameters, S1E3M7, rounds ms "
+          f"{[round(x, 1) for x in first['round_ms']]}, peak "
+          f"{first['max_memory_allocated'] / 1e9:.2f} GB, losses {first['losses']}, "
+          f"{want} a round (the formula), {first['ckpt_bytes']:,} B a checkpoint; rerun "
+          f"in {resume_s:.1f} s: resumed at round {rounds}, the same report and ckpt_{rounds}")
+    return dict(counts=counts, script_s=secs, rerun_s=resume_s, round_ms=first["round_ms"],
+                peak=first["max_memory_allocated"], losses=first["losses"],
+                ckpt_bytes=first["ckpt_bytes"], per_round=want)
+
+
+def run_example(name: str, argv) -> str:
+    """``examples_torch/<name>.py``'s ``main(argv)`` in process; its stdout."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = importlib.import_module(f"examples_torch.{name}").main(argv)
+    require(rc == 0, f"{name} {argv} returned {rc}")
+    return out.getvalue()
+
+
+def wire_lines(text: str) -> list:
+    """The byte figures of each output line that has any, in order."""
+    return [found for line in text.splitlines() if (found := WIRE_RE.findall(line))]
+
+
+STRATEGY_EXAMPLES = ("compress_strategies", "train_under_strategy")
+
+
+def scripts_strategies(jobs: dict) -> dict:
+    """(c) the two strategy examples at their default arguments on the card,
+    in process, and on the CPU at the same arguments (``jobs[name]``, the
+    futures of their ``run_script`` with ``--device cpu``): the per-round
+    wire bytes depend on the round index and the pipeline's DEFLATE on the
+    data, so neither side runs ``--smoke``."""
+    out, counts = {}, {}
+    for name in STRATEGY_EXAMPLES:
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        card = run_example(name, [])
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        counts[name] = ops.launch_counts()
+        require_launches(counts[name], name, quantize_stats=None, dequantize=None)
+        host, host_s = jobs[name].result()
+        lines = wire_lines(card)
+        require(lines and lines == wire_lines(host), f"{name}: wire lines differ card against "
+                f"CPU:\n{lines}\n{wire_lines(host)}")
+        losses = [float(x) for x in LOSS_RE.findall(card)]
+        require(losses and all(map(math.isfinite, losses)), f"{name}: losses {losses}")
+        print(f"  (c) {name}: card {card_s:.1f} s, CPU {host_s:.1f} s (a process); {len(lines)} wire "
+              f"lines equal, e.g. {lines[-1]}; losses {losses}; launches {counts[name]}")
+        out[name] = dict(card_s=card_s, cpu_s=host_s, wire=lines, losses=losses)
+    return dict(counts=_plus(*counts.values()), runs=out)
+
+
+REFERENCE_ROW_JSON = ROOT / "experiments" / "bench_torch" / "async_scale_reference_row.json"
+
+
+def scripts_reference_row(job) -> dict:
+    """(d) ``async_scale.py --reference-row`` on the card as a subprocess
+    (``job``, the future of its ``run_script``) against the reference's
+    row: the virtual-clock and byte columns equal, the losses within
+    ``REFERENCE_LOSS_GAP``."""
+    _, secs = job.result()
+    payload = json.loads(REFERENCE_ROW_JSON.read_text())
+    row = payload["rows"][0]
+    require(row["device"] == torch.cuda.get_device_name(0) and payload["card"],
+            f"reference row ran on {row['device']}")
+    got = {k: row[k] for k in REFERENCE_ROW_EXACT}
+    require(got == REFERENCE_ROW_EXACT, f"reference row: {got} != {REFERENCE_ROW_EXACT}")
+    gaps = {k: abs(row[k] - v) for k, v in REFERENCE_ROW_LOSSES.items()}
+    require(max(gaps.values()) <= REFERENCE_LOSS_GAP,
+            f"reference row losses {({k: row[k] for k in gaps})} against the reference's "
+            f"{REFERENCE_ROW_LOSSES}: gaps {gaps} over {REFERENCE_LOSS_GAP}")
+    print(f"  (d) async_scale --reference-row: exit 0 in {secs:.1f} s; {len(got)} columns "
+          f"equal the reference's ({got}); losses {({k: row[k] for k in gaps})}, gaps "
+          f"{({k: f'{v:.2g}' for k, v in gaps.items()})} (gate {REFERENCE_LOSS_GAP}); "
+          f"sync {row['sync_wall_s_per_round']} s a round, async "
+          f"{row['async_wall_s_per_flush']} s a flush")
+    return dict(script_s=secs, row=row, gaps=gaps)
+
+
+def scripts_registry() -> dict:
+    """(e) every ``BENCHES`` and ``TOOLS`` module of ``benchmarks_torch.run``
+    imports, and every ``ARTIFACTS`` file is in the tree with its card."""
+    registry = importlib.import_module("benchmarks_torch.run")
+    for name, module in registry.BENCHES.items():
+        require(hasattr(importlib.import_module(module), "run"), f"{module} has no run()")
+    for name in registry.TOOLS:
+        importlib.import_module(f"benchmarks_torch.{name}")
+    cards = {}
+    for artifact in registry.ARTIFACTS:
+        path = ROOT / "experiments" / "bench_torch" / artifact
+        require(path.exists(), f"artifact {artifact} is not in the tree")
+        cards[artifact] = json.loads(path.read_text()).get("card")
+        require(cards[artifact], f"artifact {artifact} records no card")
+    print(f"  (e) benchmarks_torch.run: {len(registry.BENCHES)} benches and "
+          f"{len(registry.TOOLS)} tools import; artifacts {cards}")
+    return dict(cards=cards)
+
+
+def start_script_jobs(pool) -> dict:
+    """Phase 23's subprocesses, submitted to ``pool`` (their futures by
+    part): (a) ``serve_omc.py``, (b) ``train_100m.py`` twice, (c) the
+    strategy examples on the CPU, (d) ``async_scale.py --reference-row``;
+    with the kernel libraries built so far.  Each takes seconds to reach
+    the card and is host-bound, so ``main`` starts them beside phase 22
+    (e), a comparison that times nothing."""
+    REFERENCE_ROW_JSON.unlink(missing_ok=True)
+    jobs = dict(builds=builds(),
+                serve=pool.submit(run_script, "examples_torch/serve_omc.py", []),
+                train=pool.submit(train_100m_twice),
+                reference_row=pool.submit(run_script, "benchmarks_torch/async_scale.py",
+                                          ["--reference-row"]))
+    for name in STRATEGY_EXAMPLES:
+        jobs[name] = pool.submit(run_script, f"examples_torch/{name}.py", ["--device", "cpu"])
+    return jobs
+
+
+def phase_scripts(jobs: dict) -> dict:
+    """(a) serve_omc, (b) train_100m, (c) the strategy examples, (d)
+    async_scale's reference row, (e) the script registry.  ``jobs`` are
+    :func:`start_script_jobs`'s subprocesses, which load the kernels built
+    in phase 1: no library is built or rebuilt.  Counters are zeroed
+    around each in-process run; (b)'s launches are its reports', (d)'s
+    are not counted.  Each part's seconds are its in-process work and its
+    wait for its jobs; each job prints its own."""
+    times, parts = {}, {}
+
+    def step(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+        return out
+
+    torch.cuda.empty_cache()
+    parts["strategies"] = step("(c) strategy examples", scripts_strategies, jobs)
+    parts["serve_omc"] = step("(a) serve_omc", scripts_serve, jobs["serve"])
+    parts["train_100m"] = step("(b) train_100m", scripts_train, jobs["train"])
+    parts["reference_row"] = step("(d) async_scale --reference-row", scripts_reference_row,
+                                  jobs["reference_row"])
+    require(builds() == jobs["builds"], f"the scripts built kernels: {jobs['builds']} -> "
+            f"{builds()}")
+    parts["registry"] = step("(e) benchmarks_torch.run", scripts_registry)
+    print("  parts: " + ", ".join(f"{k} {v:.1f} s" for k, v in times.items()))
+    counts = _plus(*(p.pop("counts") for p in parts.values() if "counts" in p))
+    return dict(counts=counts, parts=parts, times=times)
 
 
 def min_ms(fn, reps: int = 3) -> float:
@@ -4411,7 +4752,11 @@ def main() -> None:
     launched = timed(20, "launch and roofline on the card", phase_launch, on_host,
                      scaled.pop("packed"), zoo.pop("mixtral"))
     torch.cuda.empty_cache()
-    last = timed(22, "the last families at full width", phase_last)
+    with concurrent.futures.ThreadPoolExecutor(2 + len(STRATEGY_EXAMPLES) + 1) as pool:
+        last = timed(22, "the last families at full width", phase_last,
+                     lambda: start_script_jobs(pool))
+        scripts = timed(23, "the reference's last scripts on the card", phase_scripts,
+                        last.pop("before_e"))
     print(f"all phases: {time.perf_counter() - t0:.1f} s")
     print(json.dumps(kernel_line(kernels, {"serve": served["report"]["launch_counts"],
                                            "serve_griffin": served_g["report"]["launch_counts"],
@@ -4426,7 +4771,8 @@ def main() -> None:
                                            "scale": scaled["counts"],
                                            "launch": launched["counts"],
                                            "zoo": zoo["counts"],
-                                           "last": last["counts"]})))
+                                           "last": last["counts"],
+                                           "scripts": scripts["counts"]})))
     print(json.dumps(dict(ok=True, device=dict(platform="gpu", kind=torch.cuda.get_device_name(0),
                                                count=torch.cuda.device_count()))))
 

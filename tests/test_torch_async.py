@@ -610,6 +610,6 @@ def test_async_scale_smoke_holds_its_gate(monkeypatch, tmp_path):
 
     monkeypatch.setattr(tcommon, "OUT_DIR", tmp_path)
     assert async_scale.main(["--smoke"]) == 0
-    row = json.loads((tmp_path / "async_scale.json").read_text())["rows"][0]
+    row = json.loads((tmp_path / "async_scale_smoke.json").read_text())["rows"][0]
     assert row["vtime_speedup"] >= 2.0 and row["device"] == "cpu"
     assert (row["cohort"], row["buffer_goal"], row["update_budget"]) == (8, 4, 24)

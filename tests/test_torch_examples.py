@@ -13,12 +13,21 @@ Dirichlet data is held against the reference's in tests/test_torch_engine.py).
     wire bytes equal the reference's analytic accounting for the same plan
     (``engine.round_wire_metrics`` on the reference's cohort and survival
     draws; no reference engine runs).
+  * ``serve_omc.py`` and ``train_100m.py`` run the port's CLIs with the
+    reference's argument lists (read from the reference's files, which run
+    at import, and stated here), and exit 0 with ``--device cpu``.
+  * ``async_scale.py --reference-row`` runs the reference's default row:
+    its ``CFG`` and its ``run()``'s defaults (not run here: about 40 s).
 """
 
+import ast
 import contextlib
+import dataclasses
 import importlib
 import importlib.util
+import inspect
 import io
+import subprocess
 import sys
 from pathlib import Path
 
@@ -118,3 +127,99 @@ def test_cohort_scale_smoke_reconciles_with_reference_accounting(jinit):
             table, omc, spec.tier_omcs(omc), jengine.sample_tiered_cohort(rkey, spec, 2),
             jcohort.survival_mask(rkey, spec.plan, 2), 2)
         assert (row["down_bytes"], row["up_bytes"]) == (want["down_bytes"], want["up_bytes"])
+
+
+# The reference's argument lists, as examples/serve_omc.py:13-18 and
+# examples/train_100m.py:15-22 build them (``full``: ``--full`` given).
+REFERENCE_SERVE = ["-m", "repro.launch.serve", "--arch", "qwen2.5-3b", "--smoke", "--batch",
+                   "4", "--prompt-len", "32", "--gen", "16", "--fmt", "S1E3M7"]
+
+
+def reference_train(full: bool) -> list:
+    return (["-m", "repro.launch.train", "--arch", "conformer_s", "--rounds",
+             "200" if full else "30", "--batch", "8", "--fmt", "S1E3M7", "--ckpt-dir",
+             "/tmp/omc_train_100m", "--ckpt-every", "10"] + ([] if full else ["--smoke"]))
+
+
+def _reference_list(name: str, full: bool) -> list:
+    """The first list literal of ``examples/<name>.py``, evaluated without
+    running the file: ``sys.executable`` and ``"200" if full else "30"``."""
+    tree = ast.parse((ROOT / "examples" / f"{name}.py").read_text())
+    node = next(n for n in ast.walk(tree) if isinstance(n, ast.List))
+
+    def value(e):
+        if isinstance(e, ast.IfExp):
+            assert isinstance(e.test, ast.Name) and e.test.id == "full"
+            return value(e.body if full else e.orelse)
+        if isinstance(e, ast.Attribute):
+            assert (e.value.id, e.attr) == ("sys", "executable")
+            return sys.executable
+        return e.value
+
+    return [value(e) for e in node.elts]
+
+
+def _ported(args: list) -> list:
+    return [a.replace("repro.launch", "repro_torch.launch")
+            .replace("/tmp/omc_train_100m", "/tmp/omc_train_100m_torch") for a in args]
+
+
+@pytest.mark.parametrize("name,full", [("serve_omc", False), ("train_100m", False),
+                                       ("train_100m", True)])
+def test_script_examples_pass_the_reference_s_arguments(name, full):
+    example = _load(ROOT / "examples_torch" / f"{name}.py")
+    if name == "serve_omc":
+        stated, got = REFERENCE_SERVE, example.command()
+        on_file = _reference_list(name, full)
+    else:
+        stated, got = reference_train(full), example.command(full)
+        on_file = _reference_list(name, full) + ([] if full else ["--smoke"])
+    assert on_file == [sys.executable] + stated
+    assert got == [sys.executable] + _ported(stated)
+    extra = ["--device", "cpu", "--rounds", "2"]
+    more = example.command(extra) if name == "serve_omc" else example.command(full, extra)
+    assert more == got + extra  # further arguments follow the reference's
+
+
+@pytest.mark.parametrize("name", ["serve_omc", "train_100m"])
+def test_script_examples_run_on_the_cpu(name, tmp_path, monkeypatch):
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    argv = ["--device", "cpu", "--quiet"]
+    if name == "train_100m":
+        argv += ["--rounds", "2", "--ckpt-dir", str(tmp_path)]
+    assert _load(ROOT / "examples_torch" / f"{name}.py").main(argv) == 0
+    if name == "train_100m":
+        assert (tmp_path / "ckpt_2" / "arrays.npz").exists()
+
+
+@pytest.mark.parametrize("name", ["serve_omc", "train_100m"])
+def test_script_examples_without_a_card_fail_instead_of_using_the_cpu(name, tmp_path,
+                                                                      monkeypatch):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the example would run on it")
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    argv = ["--quiet"] + (["--ckpt-dir", str(tmp_path)] if name == "train_100m" else [])
+    with pytest.raises(subprocess.CalledProcessError):
+        _load(ROOT / "examples_torch" / f"{name}.py").main(argv)
+    assert not list(tmp_path.iterdir())
+
+
+def test_async_scale_reference_row_is_the_reference_s_default_row():
+    sys.path.insert(0, str(ROOT))
+    from benchmarks import async_scale as jbench
+    from benchmarks_torch import async_scale as bench
+
+    assert dataclasses.asdict(bench.SMOKE_CFG) == dataclasses.asdict(jbench.CFG)
+    defaults = {k: p.default for k, p in inspect.signature(jbench.run).parameters.items()}
+    assert bench.REFERENCE_ROW == {k: defaults[k] for k in bench.REFERENCE_ROW}
+    assert set(defaults) - set(bench.REFERENCE_ROW) == {"seed", "smoke", "trace"}
+    assert (defaults["seed"], defaults["smoke"]) == (0, False)
+
+
+def test_async_scale_reference_row_without_a_card_raises(monkeypatch):
+    sys.path.insert(0, str(ROOT))
+    from benchmarks_torch import async_scale as bench
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        bench.main(["--reference-row"])

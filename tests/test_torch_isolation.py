@@ -60,7 +60,7 @@ def test_examples_import_no_jax_and_no_reference():
     proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert len(list((ROOT / "examples_torch").glob("*.py"))) == 7
+    assert len(list((ROOT / "examples_torch").glob("*.py"))) == 9
 
 
 def _imported_roots(path: Path):
