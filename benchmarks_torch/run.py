@@ -44,6 +44,8 @@ BENCHES = {
 
 #: the port's card-only probes (each run alone as a script) -> what it measures.
 TOOLS = {
+    "bench_client_axis": "the engine's round batched against serial and the conformer's "
+                         "depthwise conv in four forms, one client and C batched",
     "bench_dequant_matmul": "B6 dequant_matmul alone at the serve products: error against "
                             "its bound, events time",
     "bench_dequantize": "B2 dequantize at the main paths' shapes beside its variants and an "

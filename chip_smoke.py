@@ -16,8 +16,9 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
      ``dequantize`` on recurrentgemma-2b's tied embedding [256000, 2560],
      the plain versions on blocks of 32,768 rows, ``dequantize`` timed), at
      the training path's shapes
-     (``quantize`` on a transport stack [8, 17, 512, 2048] and a storage leaf
-     [17, 512, 2048]; ``fused_aggregate`` on conformer_s leaves [17, 512, 2048]
+     (``quantize_stats`` and ``quantize`` on a transport stack [8, 17, 512,
+     2048], one (s, b) per client and layer, and a storage leaf [17, 512,
+     2048], all timed; ``fused_aggregate`` on conformer_s leaves [17, 512, 2048]
      and [17, 512, 512] stacked, and [512, 1024] flat, at cohort 8) and at
      small odd-tail shapes in S1E2M3 (u8) and S1E4M14 (u32): codes, streams
      and decodes bit-exact, PVT sums within rtol=1e-4; ``quantize_stats``,
@@ -116,10 +117,15 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
      at lr 0.1, S1E3M7 with PVT and PPQ 0.9.  After a warm round: 3 rounds
      with ``fused_agg=True``, 3 unfused rounds from the same seed (ledgers
      byte-equal, trees within max 6e-3 and mean 1e-3), and one fused round
-     with PVT off (Table 4's "quant" row).  Counters are zeroed around each
-     run: ``fused_aggregate`` 13 launches per fused round, ``quantize`` in the
-     PVT-off run, ``quantize_stats`` and ``dequantize`` in every run, no
-     plain version anywhere.
+     with PVT off (Table 4's "quant" row).  Every engine run trains each
+     tier's clients batched (``client_chunk=None``, one forward and backward
+     pass for the cohort); from the first round's storage one fused round
+     on that default and one at ``client_chunk=1`` (the clients one after
+     another): ledgers equal, losses within 1e-3, trees within the gate
+     above, the same launches, each with its ms and peak printed.  Counters
+     are zeroed around each run: ``fused_aggregate`` 13 launches per fused
+     round, ``quantize`` in the PVT-off run, ``quantize_stats`` and
+     ``dequantize`` in every run, no plain version anywhere.
   8. Card against CPU for training: the same configuration cut to 1 layer
      at full width, cohort 4, 1 fused round of 1 local step, on the card
      (kernels) and on the CPU (plain versions): ledgers equal, trees within
@@ -1191,11 +1197,14 @@ def phase_kernels() -> dict:
     torch.cuda.empty_cache()
     stacked = check_stacked_mlp(timer)
     torch.cuda.empty_cache()
-    # the training path's shapes, timed: transport stack and storage leaf
+    # the training path's shapes, timed: transport stack (the fused encode's
+    # B1, one (s, b) per client and layer) and storage leaf (one per layer)
     for shape in ((COHORT,) + TRAIN_LEAF, TRAIN_LEAF):
         x = _inputs(shape, FMT, seed=len(shape), specials=False)
-        results["quantize"].append(check_quantize(x, FMT, qk.quantize_stats(x, FMT)[0], timer))
-        del x
+        codes, r = check_quantize_stats(x, FMT, len(shape) - 2, timer)
+        results["quantize_stats"].append(r)
+        results["quantize"].append(check_quantize(x, FMT, codes, timer))
+        del x, codes
         torch.cuda.empty_cache()
     # fused_aggregate: odd tails in u8 and u32 with NaN dead rows, every
     # batch_axes, all clients dead; then conformer_s' leaves at cohort 8, timed
@@ -1538,6 +1547,7 @@ def phase_train() -> dict:
         require(abs(hf["loss"] - hu["loss"]) < 1e-3, f"fused and unfused losses differ: {hf} {hu}")
     gap = tree_gap(runs[True]["storage"], runs[False]["storage"])
     require(gap[0] <= TREE_MAX and gap[1] <= TREE_MEAN, f"fused vs unfused trees differ: {gap}")
+    axis = client_axis_rounds(cfg, omc, sim, spec, data_fn, key, params, specs)
 
     # Table 4's "quant" row: PVT off; storage and transport encode with `quantize`
     omc_q = OMCConfig.parse(FMT.name, pvt=False)
@@ -1566,15 +1576,62 @@ def phase_train() -> dict:
         for h in r["history"]:
             print(f"    {h}")
     print(f"  fused vs unfused trees: max |d| {gap[0]:.3g}, mean |d| {gap[1]:.3g}")
+    for chunk, r in axis["runs"].items():
+        print(f"  client_chunk={chunk}: fused round {r['ms']:.1f} ms, peak "
+              f"{r['max_memory_allocated'] / 1e9:.2f} GB, {r['metrics']}, launches {r['counts']}")
+    print(f"  batched vs client_chunk=1: trees max |d| {axis['gap'][0]:.3g}, mean |d| "
+          f"{axis['gap'][1]:.3g}")
     print(f"  pvt=False fused round {quant['round_s'] * 1e3:.1f} ms (with storage compress), "
           f"{metrics_q}, launches {quant['counts']}")
     counts = {}
-    for c in (runs[True]["counts"], runs[False]["counts"], quant["counts"]):
+    for c in (runs[True]["counts"], runs[False]["counts"], quant["counts"],
+              *(r["counts"] for r in axis["runs"].values())):
         for k, v in c.items():
             counts[k] = counts.get(k, 0) + v
     return dict(n_params=n_params, warm_s=warm_s, gap=gap, quant=quant, counts=counts, warm=warm,
+                client_axis={str(k): {x: y for x, y in r.items() if x != "storage"}
+                             for k, r in axis["runs"].items()},
                 runs={("fused" if f else "unfused"): {k: v for k, v in r.items() if k != "storage"}
                       for f, r in runs.items()})
+
+
+def client_axis_rounds(cfg, omc, sim, spec, data_fn, key, params, specs) -> dict:
+    """One fused round from the same storage on the batched default (each
+    tier's clients in one call) and on the serial path (``client_chunk=1``):
+    ledgers equal, losses within 1e-3, trees within the gate, the same
+    launches; ms a round and peak memory of each."""
+    storage = compress_params(params, specs, omc)
+    table = accounting.build_wire_table(params, specs, omc)
+    # the one-client body's shapes once, untimed (the batched ones are warm
+    # from the runs above): cuBLAS picks and loads its kernels per shape
+    simulate.make_client_fn(conformer, cfg, specs, omc, sim)(
+        decompress_tree(storage), simulate.client_batches(data_fn, 0, 0, sim.local_steps), 0, 0)
+    runs = {}
+    for chunk in (None, 1):
+        spec_c = dataclasses.replace(spec, client_chunk=chunk)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        new, metrics = engine.run_round_vectorized(conformer, cfg, specs, omc, sim, storage,
+                                                   data_fn, spec_c, 0, prng.fold_in(key, 0xC047),
+                                                   wire_table=table, fused_agg=True)
+        torch.cuda.synchronize()
+        runs[chunk] = dict(storage=new, metrics=metrics, ms=(time.perf_counter() - t0) * 1e3,
+                           counts=ops.launch_counts(),
+                           max_memory_allocated=torch.cuda.max_memory_allocated())
+    a, b = runs[None], runs[1]
+    keys = ("cohort", "dropped", "down_bytes", "up_bytes")
+    require({k: a["metrics"][k] for k in keys} == {k: b["metrics"][k] for k in keys},
+            f"batched and serial ledgers differ: {a['metrics']} {b['metrics']}")
+    require(abs(a["metrics"]["loss"] - b["metrics"]["loss"]) < 1e-3,
+            f"batched and serial losses differ: {a['metrics']} {b['metrics']}")
+    require(a["counts"] == b["counts"], f"launches differ: {a['counts']} {b['counts']}")
+    require_launches(a["counts"], "batched", fused_aggregate=13, quantize_stats=None,
+                     dequantize=None)
+    gap = tree_gap(a["storage"], b["storage"])
+    require(gap[0] <= TREE_MAX and gap[1] <= TREE_MEAN, f"batched vs serial trees differ: {gap}")
+    return dict(runs=runs, gap=gap)
 
 
 def phase_train_card_vs_cpu() -> tuple:

@@ -3,9 +3,10 @@
 Sync state goes through :func:`save_state` / :func:`restore_state` and the
 async runtime's mid-buffer snapshot (server storage, buffer, version-stamped
 pending tickets, trace counters, ledger) through :func:`save_async_state` /
-:func:`restore_async_state` (DESIGN.md §10), in the reference's layout: each
-package restores the other's.  The sharded population's snapshots raise
-``NotImplementedError`` until ``scale.store`` is ported (ROADMAP A9).
+:func:`restore_async_state` (DESIGN.md §10), and the sharded population's (a
+``scale.PopulationStore``'s counters and EF rows, f32 or packed) through
+:func:`save_population_state` / :func:`restore_population_state`, in the
+reference's layout: each package restores the other's.
 """
 
 from .ckpt import (

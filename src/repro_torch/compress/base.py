@@ -105,22 +105,30 @@ class CompressionStrategy(abc.ABC):
 
     # -- training view --------------------------------------------------------
     @abc.abstractmethod
-    def qdq_leaf(self, v: torch.Tensor, *, batch_axes: int = 0) -> torch.Tensor:
+    def qdq_leaf(self, v: torch.Tensor, *, batch_axes: int = 0,
+                 client_axis: bool = False) -> torch.Tensor:
         """Quantize->dequantize view, equal to ``decode_leaf(encode_leaf(v))``
-        up to the encode's tie rule, in plain PyTorch."""
+        up to the encode's tie rule, in plain PyTorch.  With ``client_axis``
+        the leading axis holds C clients' copies of the variable (counted in
+        ``batch_axes``), each compressed as a call on ``v[c]`` would."""
 
-    def qdq_ste_leaf(self, v: torch.Tensor, *, batch_axes: int = 0) -> torch.Tensor:
+    def qdq_ste_leaf(self, v: torch.Tensor, *, batch_axes: int = 0,
+                     client_axis: bool = False) -> torch.Tensor:
         """qdq with a straight-through gradient: ``v + (q - v).detach()``."""
-        return v + (self.qdq_leaf(v, batch_axes=batch_axes) - v).detach()
+        q = self.qdq_leaf(v, batch_axes=batch_axes, client_axis=client_axis)
+        return v + (q - v).detach()
 
-    def train_qdq_leaf(self, v: torch.Tensor, *, batch_axes: int = 0) -> torch.Tensor:
+    def train_qdq_leaf(self, v: torch.Tensor, *, batch_axes: int = 0,
+                       client_axis: bool = False) -> torch.Tensor:
         """The qdq the training client view applies (DESIGN.md §12); the wire
         qdq unless a strategy overrides it (OMC does)."""
-        return self.qdq_leaf(v, batch_axes=batch_axes)
+        return self.qdq_leaf(v, batch_axes=batch_axes, client_axis=client_axis)
 
-    def train_qdq_ste_leaf(self, v: torch.Tensor, *, batch_axes: int = 0) -> torch.Tensor:
+    def train_qdq_ste_leaf(self, v: torch.Tensor, *, batch_axes: int = 0,
+                           client_axis: bool = False) -> torch.Tensor:
         """:meth:`train_qdq_leaf` with a straight-through gradient."""
-        return v + (self.train_qdq_leaf(v, batch_axes=batch_axes) - v).detach()
+        q = self.train_qdq_leaf(v, batch_axes=batch_axes, client_axis=client_axis)
+        return v + (q - v).detach()
 
     # -- byte accounting ----------------------------------------------------
     @abc.abstractmethod

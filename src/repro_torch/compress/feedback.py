@@ -87,11 +87,20 @@ def total_norm(ef: Optional[Dict[str, torch.Tensor]]) -> float:
 
 
 def compensate_leaf(strategy: CompressionStrategy, delta, residual, mask_bit, *,
-                    batch_axes: int = 0, ste: bool = False):
+                    batch_axes: int = 0, ste: bool = False, client_axis: bool = False):
     """One variable's send rule: ``(sent, new_residual)``.  With the client's
     PPQ bit unset the variable travels f32: the compensated update arrives
-    exactly and the residual drains to 0."""
+    exactly and the residual drains to 0.  With ``client_axis`` the leading
+    axis holds C clients (counted in ``batch_axes``) and ``mask_bit`` is
+    their ``bool[C]`` bits: each row as a call on its own would give."""
     comp = delta + residual
     qdq = strategy.train_qdq_ste_leaf if ste else strategy.train_qdq_leaf
-    sent = qdq(comp, batch_axes=batch_axes) if bool(mask_bit) else comp
+    if client_axis:
+        bits = torch.as_tensor(mask_bit, dtype=torch.bool)
+        sent = comp
+        if bool(bits.any()):
+            sent = torch.where(bits.to(comp.device).reshape((-1,) + (1,) * (comp.ndim - 1)),
+                               qdq(comp, batch_axes=batch_axes, client_axis=True), comp)
+    else:
+        sent = qdq(comp, batch_axes=batch_axes) if bool(mask_bit) else comp
     return sent, comp - sent

@@ -22,7 +22,7 @@ import torch
 from repro_torch.core import packing
 from repro_torch.core.formats import FloatFormat, value_quantize
 from repro_torch.core.omc import OMCConfig, qdq_pvt_leaf
-from repro_torch.core.pvt import pvt_apply, pvt_solve, pvt_solve_fast
+from repro_torch.core.pvt import pvt_apply, pvt_solve, pvt_solve_fast, pvt_solve_rows
 from repro_torch.core.store import CompressedVariable, compress_variable, is_compressed
 
 from .base import CompressionStrategy, register_strategy
@@ -68,21 +68,24 @@ class OMCQuantStrategy(CompressionStrategy):
     def decode_leaf(self, leaf: CompressedVariable) -> torch.Tensor:
         return leaf.dequantize()
 
-    def qdq_leaf(self, v, *, batch_axes: int = 0) -> torch.Tensor:
+    def qdq_leaf(self, v, *, batch_axes: int = 0, client_axis: bool = False) -> torch.Tensor:
         vq = value_quantize(v, self.fmt)
         if not self.pvt:
             return vq
-        if batch_axes or self.fast:
+        if batch_axes > int(client_axis) or self.fast:
             s, b = pvt_solve_fast(v, vq, batch_axes)
+        elif client_axis:
+            s, b = pvt_solve_rows(v, vq)
+            s, b = (t.reshape((-1,) + (1,) * (v.ndim - 1)) for t in (s, b))
         else:
             s, b = pvt_solve(v, vq)
         return pvt_apply(vq, s, b)
 
-    def train_qdq_leaf(self, v, *, batch_axes: int = 0) -> torch.Tensor:
+    def train_qdq_leaf(self, v, *, batch_axes: int = 0, client_axis: bool = False) -> torch.Tensor:
         """Exactly ``core.omc.qdq_pvt_leaf`` (the exact per-variable solve, no
         stacked-axis split): what ``simulate.client_view`` applies without a
         strategy, so training under this strategy gives the same bits."""
-        return qdq_pvt_leaf(v, OMCConfig(fmt=self.fmt, pvt=self.pvt))
+        return qdq_pvt_leaf(v, OMCConfig(fmt=self.fmt, pvt=self.pvt), client_axis)
 
     def leaf_wire_bytes(self, leaf: CompressedVariable) -> int:
         if not is_compressed(leaf):

@@ -29,7 +29,7 @@ from repro_torch.core import packing
 from repro_torch.core.formats import FloatFormat, decode, value_quantize
 
 from .base import CompressionStrategy, StrategyLeaf, register_strategy
-from .topk import num_kept, scatter_dense, threshold_mask, top_positions
+from .topk import client_rows, num_kept, scatter_dense, threshold_mask, top_positions
 
 
 @dataclasses.dataclass
@@ -106,10 +106,10 @@ class PipelineStrategy(CompressionStrategy):
     def decode_leaf(self, leaf: PipelineVariable) -> torch.Tensor:
         return leaf.dequantize()
 
-    def qdq_leaf(self, v, *, batch_axes: int = 0) -> torch.Tensor:
+    def qdq_leaf(self, v, *, batch_axes: int = 0, client_axis: bool = False) -> torch.Tensor:
         # the lossy stages only: DEFLATE never changes a decoded bit
-        flat = v.reshape(-1)
-        keep = threshold_mask(flat, num_kept(flat.numel(), self.density))
+        flat = client_rows(v, client_axis)
+        keep = threshold_mask(flat, num_kept(flat.shape[-1], self.density))
         kept = torch.where(keep, value_quantize(flat, self.fmt),
                            torch.zeros((), dtype=torch.float32, device=flat.device))
         return kept.reshape(v.shape)

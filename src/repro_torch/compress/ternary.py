@@ -95,7 +95,8 @@ class TernaryTNTStrategy(CompressionStrategy):
     def decode_leaf(self, leaf: TernaryVariable) -> torch.Tensor:
         return leaf.dequantize()
 
-    def qdq_leaf(self, v, *, batch_axes: int = 0) -> torch.Tensor:
+    def qdq_leaf(self, v, *, batch_axes: int = 0, client_axis: bool = False) -> torch.Tensor:
+        # a scale per stacked entry: the client axis is one of batch_axes
         t, scale = ternarize(v, batch_axes, self.threshold_factor)
         return t * scale.reshape(tuple(scale.shape) + (1,) * (t.ndim - scale.ndim))
 

@@ -49,9 +49,15 @@ def threshold_mask(flat: torch.Tensor, k: int) -> torch.Tensor:
     """The qdq views' rule: ``|v| >= sort(|v|)[n - k]`` (ties keep extra
     entries, as the reference's elementwise mask does).  The threshold is
     the smallest of the k largest magnitudes, NaN ordered last as ``sort``
-    orders it, without sorting all n."""
+    orders it, without sorting all n.  A 2-D ``flat`` holds one variable a
+    row, each with its own threshold."""
     mag = flat.abs()
-    return mag >= torch.topk(mag, k).values[-1]
+    return mag >= torch.topk(mag, k, dim=-1).values[..., -1:]
+
+
+def client_rows(v: torch.Tensor, client_axis: bool) -> torch.Tensor:
+    """``v`` flattened: one row per client with ``client_axis``, else 1-D."""
+    return v.reshape(v.shape[0], -1) if client_axis else v.reshape(-1)
 
 
 def scatter_dense(idx: torch.Tensor, vals: torch.Tensor, shape) -> torch.Tensor:
@@ -135,9 +141,9 @@ class TopKSparseStrategy(CompressionStrategy):
     def decode_leaf(self, leaf: TopKSparseVariable) -> torch.Tensor:
         return leaf.dequantize()
 
-    def qdq_leaf(self, v, *, batch_axes: int = 0) -> torch.Tensor:
-        flat = v.reshape(-1)
-        keep = threshold_mask(flat, num_kept(flat.numel(), self.density))
+    def qdq_leaf(self, v, *, batch_axes: int = 0, client_axis: bool = False) -> torch.Tensor:
+        flat = client_rows(v, client_axis)
+        keep = threshold_mask(flat, num_kept(flat.shape[-1], self.density))
         kept = torch.where(keep, flat, torch.zeros((), dtype=flat.dtype, device=flat.device))
         if not self.value_fmt.is_identity:
             kept = value_quantize(kept, self.value_fmt)

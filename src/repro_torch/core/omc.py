@@ -18,7 +18,7 @@ from . import prng
 from .formats import FloatFormat, value_quantize
 from .partial import ppq_mask
 from .policy import QuantizePolicy, path_str, quantizable_names
-from .pvt import pvt_apply, pvt_solve
+from .pvt import pvt_apply, pvt_solve, pvt_solve_rows
 from .store import compress_tree, decompress_tree, tree_bytes_report
 from .tree import tree_map_with_path
 
@@ -47,14 +47,20 @@ class OMCConfig:
         return prng.PRNGKey(self.ppq_seed)
 
 
-def qdq_pvt_leaf(v: torch.Tensor, cfg: OMCConfig) -> torch.Tensor:
+def qdq_pvt_leaf(v: torch.Tensor, cfg: OMCConfig, client_axis: bool = False) -> torch.Tensor:
     """quantize→dequantize one variable, with the PVT correction when on.
 
     One (s, b) for the whole tensor, stacked layers included (the reference
-    solves it so, without batch axes)."""
+    solves it so, without batch axes).  With ``client_axis`` the leading
+    axis holds C clients' copies of the variable, and each gets its own
+    (s, b): the same bits as C calls on ``v[c]``."""
     vq = value_quantize(v, cfg.fmt)
     if not cfg.pvt:
         return vq
+    if client_axis:
+        s, b = pvt_solve_rows(v, vq)
+        shape = (-1,) + (1,) * (v.ndim - 1)
+        return pvt_apply(vq, s.reshape(shape), b.reshape(shape))
     s, b = pvt_solve(v, vq)
     return pvt_apply(vq, s, b)
 

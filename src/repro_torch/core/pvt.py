@@ -11,7 +11,8 @@ Degenerate case (constant Ṽ): s = 1, and b absorbs the mean error.
 Two solvers, as in the reference: ``pvt_solve_fast`` (plain f32 sums,
 optional batch axes; storage and transport) and ``pvt_solve`` (one
 variable, sums accurate to about f64; the clients' quantize-dequantize
-view).
+view).  ``pvt_solve_rows`` is ``pvt_solve`` once per entry of a leading
+client axis, in one pass over the stack.
 """
 
 from __future__ import annotations
@@ -66,6 +67,24 @@ def pvt_solve(v: torch.Tensor, v_tilde: torch.Tensor) -> Tuple[torch.Tensor, tor
     qf = v_tilde.reshape(-1).to(torch.float32)
     sums = torch.stack([_csum(vf), _csum(qf), _csum(vf * qf), _csum(qf * qf)])
     return pvt_from_sums(sums, vf.numel())
+
+
+def _csum_rows(x: torch.Tensor) -> torch.Tensor:
+    """:func:`_csum` of each row of a 2-D f32 tensor: ``[C]`` f32."""
+    pad = (-x.shape[1]) % _CHUNK
+    if pad:
+        x = torch.cat([x, x.new_zeros((x.shape[0], pad))], 1)
+    return x.reshape(x.shape[0], -1, _CHUNK).sum(2).to(torch.float64).sum(1).to(torch.float32)
+
+
+def pvt_solve_rows(v: torch.Tensor, v_tilde: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`pvt_solve` of each ``v[c]`` against ``v_tilde[c]`` along the
+    leading axis: ``(s, b)`` of shape ``[C]``."""
+    vf = v.reshape(v.shape[0], -1).to(torch.float32)
+    qf = v_tilde.reshape(v.shape[0], -1).to(torch.float32)
+    sums = torch.stack([_csum_rows(vf), _csum_rows(qf), _csum_rows(vf * qf),
+                        _csum_rows(qf * qf)], dim=-1)
+    return pvt_from_sums(sums, vf.shape[1])
 
 
 def pvt_solve_fast(

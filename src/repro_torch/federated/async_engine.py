@@ -12,10 +12,11 @@ barrier.  Clients *check in* against a virtual clock driven by a
 
 Training is lazy and batched by version, as in the reference: the first
 upload of a version trains every still-untrained client that downloaded it,
-each through :func:`.simulate.make_client_fn` (the body the engine runs),
-keyed by the client's own round counter, never the server version.  The
-reference ``vmap``s those lanes in one padded program; the port runs the
-real lanes one after another, as its engine does, and trains no pad lane.
+in chunks of ``AsyncConfig.capacity`` lanes, each chunk one call of
+:func:`make_batch_train_fn` (the batched body the engine runs,
+:func:`.simulate.make_batch_client_fn`), each lane keyed by its client's own
+round counter, never the server version.  The reference pads a short chunk
+to its fixed width and discards the pad lanes; the port trains no pad lane.
 The flush decodes the storage (B2 ``dequantize``), takes the
 staleness-weighted mean, interpolates with ``server_lr`` and re-compresses
 (B1 ``quantize_stats``).  With ``fused_agg=True`` each trained lane is
@@ -35,12 +36,13 @@ tickets, trace counters, ledger) are
 :func:`~repro_torch.checkpoint.restore_async_state`.  ``strategy`` and
 ``ste`` train the lanes under a zoo compressor (DESIGN.md §12); under an
 error-feedback strategy ``runner.ef`` holds one residual row per client,
-which each lane gathers before it trains and writes back after (the lanes
-train one after another, so no pad lane exists to discard), and the
-checkpoint carries it.  ``fused_agg=True`` with a strategy raises, as in
-the reference.  ``obs`` (a ``repro_torch.obs.Obs``, DESIGN.md §15) adds a
+which each chunk gathers before it trains and writes back after (no pad
+lane exists to discard), and the checkpoint carries it.
+``fused_agg=True`` with a strategy raises, as in the reference.  ``obs``
+(a ``repro_torch.obs.Obs``, DESIGN.md §15) adds a
 ``client_round`` virtual span per check-in (its sampled latency on the
-virtual clock), ``dispatch`` and ``flush`` wall spans, and a ``flush``
+virtual clock), a ``dispatch`` wall span per trained chunk (its lane count
+in the args, as the reference's), ``flush`` wall spans, and a ``flush``
 record per flush with the staleness list and the wire ledger; with metrics
 on, the unfused flush hands back the buffer mean it already computed and
 the bundle is built from it afterwards.  ``population`` (a
@@ -61,6 +63,7 @@ import torch
 
 from repro_torch.core.omc import OMCConfig
 from repro_torch.core.store import decompress_tree
+from repro_torch.core.tree import tree_map
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import null_span
 
@@ -137,20 +140,69 @@ class AsyncConfig:
 
     ``buffer_goal`` (K) is validated against the population with the sync
     report goal's gate (:func:`.cohort.validate_report_goal`) when a runner
-    is built.  The reference's ``train_capacity`` (its padded ``vmap``
-    width) has no counterpart: the port trains the real lanes one after
-    another.
+    is built.  ``train_capacity`` is the most lanes one training call takes
+    (:attr:`capacity`, default K: one call per flush in the steady state);
+    larger groups train in several calls.
     """
 
     buffer_goal: int
     decay: float = 0.0
     decay_mode: str = "poly"
     max_staleness: Optional[int] = None  # drop (don't aggregate) staler uploads
+    train_capacity: Optional[int] = None
 
     def __post_init__(self):
         staleness_weights(torch.zeros((1,)), self.decay, self.decay_mode)
         if self.max_staleness is not None and self.max_staleness < 0:
             raise ValueError(f"max_staleness must be >= 0, got {self.max_staleness}")
+        if self.train_capacity is not None and self.train_capacity < 1:
+            raise ValueError(f"train_capacity must be >= 1, got {self.train_capacity}")
+
+    @property
+    def capacity(self) -> int:
+        return self.train_capacity or self.buffer_goal
+
+
+# ---------------------------------------------------------------------------
+# Batched client training
+# ---------------------------------------------------------------------------
+
+
+def make_batch_train_fn(family, cfg, specs, omc: OMCConfig, sim: SimConfig, data_fn,
+                        capacity: int, strategy=None, ste: bool = False,
+                        takes_residual: bool = False):
+    """``(storage, cids, rounds) -> (models, losses)``: up to ``capacity``
+    lanes trained in one call of the batched body the engine runs
+    (:func:`.simulate.make_batch_client_fn`), ``models`` one tree of
+    ``[lanes, ...]`` stacks and ``losses`` ``[lanes]``.  ``rounds`` is each
+    client's own round counter, never the server version: a client that
+    trains twice under one version draws fresh data and a fresh PPQ mask.
+    With ``takes_residual`` the lanes' residual rows ``{name: [lanes, ...]}``
+    ride as a fourth argument and their updated rows come back as a third
+    output.  Every lane given is trained (the reference's pad lanes too).
+
+    The function's ``from_decoded`` attribute takes the decoded server tree
+    in place of ``storage``, so that a version's chunks share one decode."""
+    many = simulate.make_batch_client_fn(family, cfg, specs, omc, sim, strategy, ste,
+                                         takes_residual)
+
+    def from_decoded(server_f32, cids, rounds, ef_rows=None):
+        cids = [int(c) for c in torch.as_tensor(cids).reshape(-1).tolist()]
+        rounds = [int(r) for r in torch.as_tensor(rounds).reshape(-1).tolist()]
+        if not 1 <= len(cids) <= capacity or len(rounds) != len(cids):
+            raise ValueError(f"{len(cids)} lanes and {len(rounds)} rounds for a capacity of "
+                             f"{capacity}")
+        batches = simulate.cohort_batches(data_fn, cids, rounds, sim.local_steps)
+        models, losses, rows = many(server_f32, batches, rounds, cids, ef_rows)
+        return (models, losses, rows) if takes_residual else (models, losses)
+
+    def batch_fn(storage, cids, rounds, ef_rows=None):
+        with torch.no_grad():
+            server_f32 = decompress_tree(storage)
+        return from_decoded(server_f32, cids, rounds, ef_rows)
+
+    batch_fn.from_decoded = from_decoded
+    return batch_fn
 
 
 # ---------------------------------------------------------------------------
@@ -260,8 +312,8 @@ class AsyncRunner:
         takes_ef = simulate.ef_lib.takes_residual(omc, strategy)
         self.ef = (simulate.ef_lib.init_ef_state(params, self.specs, omc, self.num_clients)
                    if takes_ef else None)
-        self._client_fn = simulate.make_client_fn(family, cfg, self.specs, omc, sim, strategy,
-                                                  ste, takes_residual=takes_ef)
+        self._batch_fn = make_batch_train_fn(family, cfg, self.specs, omc, sim, data_fn,
+                                             acfg.capacity, strategy, ste, takes_ef)
         # telemetry (DESIGN.md §15): obs=None is a strict no-op, the same
         # flush and no spans or records
         self.obs = obs
@@ -392,36 +444,42 @@ class AsyncRunner:
 
     def _train(self, cid: int, base: int) -> Tuple[Any, float]:
         """The trained model of ``(cid, base)``: trains every still-untrained
-        client that downloaded version ``base``, in ``pending``'s order, each
-        keyed by its own round counter, and caches the results."""
+        client that downloaded version ``base``, in ``pending``'s order and
+        in chunks of ``capacity`` lanes, each lane keyed by its own round
+        counter, and caches the results."""
         key = (base, cid)
         if key not in self.trained:
             group = [(c, p.round_index) for c, p in self.pending.items()
                      if p.base_version == base and (base, c) not in self.trained]
             with torch.no_grad():
                 server_f32 = decompress_tree(self.version_storages[base])
-            with null_span(self.obs, "dispatch", version=base, lanes=len(group)):
-                for c, rnd in group:
-                    self._train_lane(server_f32, base, c, rnd)
+            cap = self.acfg.capacity
+            for i in range(0, len(group), cap):
+                self._train_chunk(server_f32, base, group[i:i + cap])
             del server_f32
         return self.trained.pop(key)
 
-    def _train_lane(self, server_f32, base: int, c: int, rnd: int) -> None:
-        batches = simulate.client_batches(self.data_fn, c, rnd, self.sim.local_steps)
-        if self.ef is not None:
-            model, loss, rows = self._client_fn(server_f32, batches, rnd, c,
-                                                {k: v[c] for k, v in self.ef.items()})
-            for k, v in self.ef.items():
-                v[c] = rows[k]
-            del rows
-        else:
-            model, loss = self._client_fn(server_f32, batches, rnd, c)
-        if self.fused_agg:
-            # transport-encode at once (§13): the cached upload, and later
-            # the buffer, holds codes, not f32 trees
-            with torch.no_grad():
-                model = compress_params(model, self.specs, self.omc)
-        self.trained[(base, c)] = (model, float(loss))
+    def _train_chunk(self, server_f32, base: int, chunk) -> None:
+        cids = [c for c, _ in chunk]
+        rounds = [r for _, r in chunk]
+        with null_span(self.obs, "dispatch", version=base, lanes=len(chunk)):
+            if self.ef is not None:
+                models, losses, rows = self._batch_fn.from_decoded(
+                    server_f32, cids, rounds, simulate.ef_lib.gather_rows(self.ef, cids))
+                with torch.no_grad():
+                    for k, v in self.ef.items():
+                        v[cids] = rows[k].to(v.device)
+                del rows
+            else:
+                models, losses = self._batch_fn.from_decoded(server_f32, cids, rounds)
+        for j, (c, loss) in enumerate(zip(cids, losses.tolist())):
+            model = tree_map(lambda x: x[j], models)
+            if self.fused_agg:
+                # transport-encode each lane at once (§13): the cached upload,
+                # and later the buffer, holds codes, not f32 trees
+                with torch.no_grad():
+                    model = compress_params(model, self.specs, self.omc)
+            self.trained[(base, c)] = (model, loss)
 
     def _gc_versions(self) -> None:
         live = {p.base_version for p in self.pending.values()}

@@ -1,13 +1,15 @@
 """Vectorized heterogeneous-cohort engine (port of ``repro.federated.engine``).
 
 The reference runs a whole round as one jitted XLA program that ``vmap``s
-the single-client body (``simulate.make_client_fn``) over the cohort.  The
-port runs the invited clients of each tier one after another on the card,
-each with its own full-width forward and backward, and stacks their
-results into ``[C, ...]`` tensors for the server half.  A loop computes the
-same function as ``vmap``; it is used because the client body's
-quantize→dequantize goes through ``Tensor.view(dtype)`` bit operations,
-which ``torch.func.vmap`` does not batch reliably.
+the single-client body (``simulate.make_client_fn``) over the cohort, or
+``lax.map``s it over blocks of ``client_chunk`` clients to bound memory.
+The port does the same with the batched body
+(``simulate.make_batch_client_fn``): each tier's invited clients train in
+one call (``client_chunk=None``, the default) or in blocks of
+``client_chunk``, each block one forward and backward pass over ``[k, ...]``
+stacks, and the blocks' models go into the rows of the cohort's ``[C, ...]``
+stacks for the server half.  ``client_chunk=1`` runs the one-client body
+client after client, the serial path the batched one is held against.
 
 Semantics kept from the reference:
 
@@ -24,18 +26,19 @@ Semantics kept from the reference:
     launch per compressed leaf; unselected leaves keep the f32 mean.
 
 ``strategy`` and ``ste`` train every tier's clients under a zoo
-compressor (DESIGN.md §12), through the loop's client body; under an
-error-feedback strategy ``ef`` holds the population's residuals, each
-client gathering its rows before it trains and the surviving clients'
-rows written back after (a dead client keeps its residual, as in the
-reference).  A strategy runs the unfused server round: ``fused_agg=True``
-with a strategy raises ``ValueError``, as in the reference.  ``obs`` (a
+compressor (DESIGN.md §12), through the same bodies; under an
+error-feedback strategy ``ef`` holds the population's residuals: a block
+gathers its clients' ``[k, ...]`` rows before it trains and writes back
+only its surviving clients' rows after (a dead client keeps its residual,
+as in the reference).  A strategy runs the unfused server round:
+``fused_agg=True`` with a strategy raises ``ValueError``, as in the
+reference.  ``obs`` (a
 ``repro_torch.obs.Obs``, DESIGN.md §15) times each round in a wall span and
 records it; with metrics on, the unfused round hands back the cohort mean
 it already computed and the bundle is built from it after the round, so the
 stored tree is the same bits as with ``obs=None``.  ``data_mode`` is
-accepted for the reference's signature, and both modes draw batches on the
-host side of the loop.
+accepted for the reference's signature, and both modes draw each block's
+batches on the host side, client after client.
 """
 
 from __future__ import annotations
@@ -112,8 +115,10 @@ class CohortSpec:
     With no ``tiers`` the cohort is homogeneous and samples exactly as the
     loop does.  With tiers, client ``i`` belongs to tier ``i % n_tiers`` and
     each round samples ``quotas[t]`` clients from tier ``t``.
-    ``client_chunk`` keeps the reference's name and validation; the port runs
-    clients one at a time, so it has no effect on the result or on memory.
+    ``client_chunk`` is the reference's: ``None`` trains each tier's clients
+    in one batched call (its pure ``vmap``), ``k`` in blocks of ``k`` (its
+    ``lax.map`` of vmapped blocks: live memory bounded by ``k`` clients), and
+    ``1`` one client after another through the one-client body.
     """
 
     plan: cohort_lib.CohortPlan
@@ -311,8 +316,8 @@ def make_round_fn(family, cfg, specs, omc: OMCConfig, sim: SimConfig, spec: Coho
         raise ValueError("fused_agg=True needs a homogeneous cohort, OMC enabled, and no "
                          "compression strategy")
     takes_ef = simulate.ef_lib.takes_residual(omc, strategy)
-    ones = [simulate.make_client_fn(family, cfg, specs, omc_t, sim, strategy, ste,
-                                    takes_residual=takes_ef)
+    make = simulate.make_client_fn if spec.client_chunk == 1 else simulate.make_batch_client_fn
+    ones = [make(family, cfg, specs, omc_t, sim, strategy, ste, takes_residual=takes_ef)
             for omc_t in spec.tier_omcs(omc)]
 
     def losses_and_weights(loss_c, alive):
@@ -348,30 +353,58 @@ def make_round_fn(family, cfg, specs, omc: OMCConfig, sim: SimConfig, spec: Coho
         with torch.no_grad():
             server_f32 = decompress_tree(storage)
         alive_l = alive.tolist()
-        # each client's model goes into its row of the cohort's stacks as
-        # soon as it is trained, so the cohort's models are held once
+        # each block's models go into their rows of the cohort's stacks as
+        # soon as they are trained, so the cohort's models are held once
         stacked, losses = None, []
         n = sum(len(ids_t) for ids_t in ids_per_tier)
         for one, ids_t in zip(ones, ids_per_tier):
-            for cid in ids_t.tolist():
-                batches = simulate.client_batches(data_fn, cid, round_index, sim.local_steps)
-                if takes_ef:
-                    m, loss, rows = one(server_f32, batches, round_index, cid,
-                                        {k: v[cid] for k, v in ef.items()})
-                    if alive_l[len(losses)]:  # a dead client keeps its residual
-                        for k, v in ef.items():
-                            v[cid] = rows[k]
-                    del rows
+            ids = ids_t.tolist()
+            width = spec.client_chunk or max(len(ids), 1)
+            for i in range(0, len(ids), width):
+                block = ids[i:i + width]
+                off = sum(x.numel() for x in losses)
+                if spec.client_chunk == 1:
+                    m, loss = train_one(one, server_f32, block[0], round_index, ef,
+                                        alive_l[off])
+                    with torch.no_grad():
+                        stacked = simulate.stack_into(stacked, off, m, n)
                 else:
-                    m, loss = one(server_f32, batches, round_index, cid)
-                with torch.no_grad():
-                    stacked = simulate.stack_into(stacked, len(losses), m, n)
+                    m, loss = train_block(one, server_f32, block, round_index, ef,
+                                          alive_l[off:off + len(block)])
+                    with torch.no_grad():
+                        stacked = simulate.stack_rows_into(stacked, off, m, n)
                 del m
-                losses.append(loss)
+                losses.append(loss.reshape(-1))
         with torch.no_grad():
             if fused_agg:
-                return finish_fused(storage, stacked, torch.stack(losses), alive)
-            return finish(server_f32, stacked, torch.stack(losses), alive)
+                return finish_fused(storage, stacked, torch.cat(losses), alive)
+            return finish(server_f32, stacked, torch.cat(losses), alive)
+
+    def train_one(one, server_f32, cid, round_index, ef, alive_c):
+        batches = simulate.client_batches(data_fn, cid, round_index, sim.local_steps)
+        if not takes_ef:
+            return one(server_f32, batches, round_index, cid)
+        m, loss, rows = one(server_f32, batches, round_index, cid,
+                            {k: v[cid] for k, v in ef.items()})
+        if alive_c:  # a dead client keeps its residual
+            for k, v in ef.items():
+                v[cid] = rows[k]
+        return m, loss
+
+    def train_block(many, server_f32, block, round_index, ef, alive_b):
+        rounds = [round_index] * len(block)
+        batches = simulate.cohort_batches(data_fn, block, rounds, sim.local_steps)
+        if not takes_ef:
+            m, loss, _ = many(server_f32, batches, rounds, block)
+            return m, loss
+        m, loss, rows = many(server_f32, batches, rounds, block,
+                             simulate.ef_lib.gather_rows(ef, block))
+        keep = [j for j, ok in enumerate(alive_b) if ok]  # dead clients keep theirs
+        if keep:
+            with torch.no_grad():
+                for k, v in ef.items():
+                    v[[block[j] for j in keep]] = rows[k][keep].to(v.device)
+        return m, loss
 
     round_fn.collect_metrics = collect_metrics
     return round_fn

@@ -28,6 +28,16 @@ takes the straight-through form of the strategy's qdq.  ``obs`` (a
 ``repro_torch.obs.Obs``, DESIGN.md §15) adds a ``round`` wall span and a
 ``round`` record whose metric bundle is built from the loop's own f32 mean
 after the round, so the stored tree is the same bits as with ``obs=None``.
+
+Two round bodies serve every path: :func:`make_client_fn` trains one
+client (the loop, the sessions, and the engine at ``client_chunk=1``), and
+:func:`make_batch_client_fn` trains C clients at once, as the reference's
+``vmap`` of the one-client body does (the engine, the async runtime and
+the streamed round).  The batched body builds the C client views on
+``[C, ...]`` stacks outside any ``vmap`` (the minifloat bit operations do
+not batch under it), runs one forward and backward pass for the C clients
+through the family's ``loss_clients``, and compresses the C uploads on the
+stacks again.
 """
 
 from __future__ import annotations
@@ -105,6 +115,24 @@ def stack_into(stacked, i: int, tree, n: int):
     if stacked is None:
         stacked = tree_map(alloc, tree)
     return tree_map(copy, stacked, tree)
+
+
+def stack_rows_into(stacked, start: int, rows, n: int):
+    """Copy the f32 ``[k, ...]`` stacks ``rows`` into rows ``start:start + k``
+    of ``stacked``, the ``[n, ...]`` stacks (allocated from ``rows`` when
+    None), and return them; with ``k == n`` and ``stacked`` None, ``rows``
+    itself."""
+    k = next(tree_items(rows))[1].shape[0]
+    if stacked is None and start == 0 and k == n:
+        return rows
+    if stacked is None:
+        stacked = tree_map(lambda x: x.new_empty((n,) + tuple(x.shape[1:])), rows)
+
+    def copy(st, x):
+        st[start:start + k].copy_(x)
+        return st
+
+    return tree_map(copy, stacked, rows)
 
 
 def _masks(params_f32, specs, omc: OMCConfig, round_index: int, client_id: int):
@@ -186,9 +214,9 @@ class SimConfig:
     server_lr: float = 1.0
 
 
-def sgd_steps(family, cfg, params, batches, lr: float) -> Tuple[Any, torch.Tensor]:
-    """One plain SGD step (``p − lr·g``, autograd through ``family.loss``) per
-    batch of ``batches``; returns (params, losses ``[steps]``)."""
+def _sgd(loss_fn, params, batches, lr: float) -> Tuple[Any, torch.Tensor]:
+    """One plain SGD step (``p − lr·g``) per batch: ``g`` the gradient of the
+    sum of ``loss_fn(params, batch)``; returns (params, the losses stacked)."""
     losses = []
     for batch in batches:
         leaves = {}
@@ -199,12 +227,19 @@ def sgd_steps(family, cfg, params, batches, lr: float) -> Tuple[Any, torch.Tenso
             return p
 
         params = tree_map_with_path(track, params)
-        loss = family.loss(cfg, params, batch, IDENTITY_MAT)
-        grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+        loss = loss_fn(params, batch)
+        grads = dict(zip(leaves, torch.autograd.grad(loss.sum(), list(leaves.values()))))
         with torch.no_grad():
             params = tree_map_with_path(lambda path, p: p - lr * grads[path], params)
+        del grads, leaves
         losses.append(loss.detach())
     return params, torch.stack(losses)
+
+
+def sgd_steps(family, cfg, params, batches, lr: float) -> Tuple[Any, torch.Tensor]:
+    """One plain SGD step (``p − lr·g``, autograd through ``family.loss``) per
+    batch of ``batches``; returns (params, losses ``[steps]``)."""
+    return _sgd(lambda p, b: family.loss(cfg, p, b, IDENTITY_MAT), params, batches, lr)
 
 
 def make_client_fn(family, cfg, specs, omc: OMCConfig, sim: SimConfig, strategy=None,
@@ -263,6 +298,157 @@ def make_client_update(family, cfg, specs, omc: OMCConfig, sim: SimConfig, strat
 
 def client_batches(data_fn, client_id: int, round_index: int, local_steps: int):
     return [data_fn(client_id, round_index, s) for s in range(local_steps)]
+
+
+def cohort_batches(data_fn, client_ids, round_indices, local_steps: int):
+    """The batches of C clients: one tree a local step, each tensor
+    ``[C, ...]``, client ``c``'s rows drawn by ``data_fn(c, round, step)``
+    by :func:`client_batches`, client after client."""
+    per_client = [client_batches(data_fn, int(c), int(r), local_steps)
+                  for c, r in zip(client_ids, round_indices)]
+    return [stack_trees(step) for step in zip(*per_client)]
+
+
+def _client_bits(names, omc: OMCConfig, round_indices, client_ids):
+    """``{selected path: bool[C]}`` on the host: the PPQ bits of C clients,
+    each keyed by its own round."""
+    rows = torch.stack([ppq_mask(omc.ppq_key(), int(r), int(c), len(names),
+                                 omc.quantize_fraction)
+                        for r, c in zip(round_indices, client_ids)])
+    return {n: rows[:, i] for i, n in enumerate(names)}
+
+
+def _where_clients(bits: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Row ``c`` of ``a`` where ``bits[c]`` (host bools), else of ``b``."""
+    if bool(bits.all()):
+        return a
+    return torch.where(bits.to(a.device).reshape((-1,) + (1,) * (a.ndim - 1)), a, b)
+
+
+def client_view_batch(stack, specs, omc: OMCConfig, bits, strategy=None, ste: bool = False):
+    """:func:`client_view` of C clients on ``[C, ...]`` stacks, with their
+    PPQ bits ``bits`` (:func:`_client_bits`): row ``c`` is client ``c``'s view,
+    the same bits as :func:`client_view` of that row."""
+    if not omc.enabled or (strategy is not None and strategy.upload_only) or not bits:
+        return stack
+    if strategy is not None:
+        qdq = strategy.train_qdq_ste_leaf if ste else strategy.train_qdq_leaf
+
+    def f(path, spec, leaf):
+        b = bits.get(path_str(path))
+        if b is None or not bool(b.any()):
+            return leaf
+        if strategy is None:
+            q = qdq_pvt_leaf(leaf, omc, client_axis=True)
+        else:
+            q = qdq(leaf, batch_axes=n_stack_axes(spec, leaf[0]) + 1, client_axis=True)
+        return _where_clients(b, q, leaf)
+
+    return tree_map_with_path(f, specs, stack)
+
+
+def strategy_upload_batch(trained, received, residual, specs, omc: OMCConfig, strategy,
+                          bits, ste: bool = False):
+    """:func:`strategy_upload` of C clients on ``[C, ...]`` stacks, with
+    ``residual`` their ``{path: [C, ...]}`` rows (or None)."""
+    if not omc.enabled or not bits:
+        return trained, dict(residual or {})
+    use_ef = bool(strategy.error_feedback) and residual is not None
+    qdq = strategy.train_qdq_ste_leaf if ste else strategy.train_qdq_leaf
+    new_residual: Dict[str, Any] = {}
+
+    def f(path, spec, t, rcv):
+        name = path_str(path)
+        if name not in bits:
+            return t  # unselected variables travel f32 and arrive exact
+        delta = t - rcv
+        ax = n_stack_axes(spec, t[0]) + 1
+        if use_ef:
+            sent, new_residual[name] = ef_lib.compensate_leaf(
+                strategy, delta, residual[name], bits[name], batch_axes=ax, ste=ste,
+                client_axis=True)
+        elif bool(bits[name].any()):
+            sent = _where_clients(bits[name], qdq(delta, batch_axes=ax, client_axis=True),
+                                  delta)
+        else:
+            sent = delta
+        return rcv + sent
+
+    out = tree_map_with_path(f, specs, trained, received)
+    return out, (new_residual if use_ef else dict(residual or {}))
+
+
+def make_batch_client_fn(family, cfg, specs, omc: OMCConfig, sim: SimConfig, strategy=None,
+                         ste: bool = False, takes_residual: Optional[bool] = None):
+    """The round body of C clients at once, the reference's ``vmap`` of
+    :func:`make_client_fn`'s body:
+    ``(server_f32, batches, round_indices[C], client_ids[C], ef_rows=None)
+    -> (models, losses[C], new_rows)``.
+
+    ``batches`` is :func:`cohort_batches`' list of ``local_steps`` trees of
+    ``[C, ...]`` tensors; ``models`` is one tree of ``[C, ...]`` stacks, row
+    ``c`` client ``c``'s upload; ``losses`` each client's mean loss over its
+    steps.  Each client is keyed by its own round (its data and PPQ mask).
+    With ``takes_residual`` (by default ``feedback.takes_residual(omc,
+    strategy)``) ``ef_rows`` are the C clients' ``{path: [C, ...]}``
+    residual rows and ``new_rows`` their updated rows; otherwise
+    ``new_rows`` is ``{}``.
+
+    A family trains batched through its ``loss_clients`` (conformer, the
+    dense transformer); for any other family a call with C > 1 raises
+    ``ValueError`` naming it, and C = 1 runs :func:`make_client_fn`'s body.
+    """
+    if takes_residual is None:
+        takes_residual = ef_lib.takes_residual(omc, strategy)
+    sparse = strategy is not None and strategy.upload_only
+    batched = hasattr(family, "loss_clients")
+    one = None if batched else make_client_fn(family, cfg, specs, omc, sim, strategy, ste,
+                                              takes_residual)
+
+    def unbatched(server_f32, batches, r, c, ef_rows):
+        def row(tree):
+            return tree_map(lambda x: x[0], tree)
+
+        one_batches = [row(b) for b in batches]
+        if takes_residual:
+            m, loss, rows = one(server_f32, one_batches, r, c, row(ef_rows))
+        else:
+            (m, loss), rows = one(server_f32, one_batches, r, c), {}
+        return (tree_map(lambda x: x.unsqueeze(0), m), loss.reshape(1),
+                {k: v.unsqueeze(0) for k, v in rows.items()})
+
+    def batch_client(server_f32, batches, round_indices, client_ids, ef_rows=None):
+        rounds = [int(r) for r in round_indices]
+        cids = [int(c) for c in client_ids]
+        n = len(cids)
+        if takes_residual and ef_rows is None:
+            raise ValueError("this body trains under an error-feedback strategy: pass ef_rows")
+        if not batched:
+            if n != 1:
+                name = family.__name__.rsplit(".", 1)[-1]
+                raise ValueError(f"the {name} family has no batched client "
+                                 f"body (loss_clients): train it one client at a time "
+                                 f"(client_chunk=1, train_capacity=1 or capacity=1)")
+            return unbatched(server_f32, batches, rounds[0], cids[0], ef_rows)
+        names = accounting.selected_names(server_f32, specs, omc) if omc.enabled else []
+        bits = _client_bits(names, omc, rounds, cids) if names else {}
+        stack = tree_map(lambda x: x.expand((n,) + tuple(x.shape)), server_f32)
+        eff = client_view_batch(stack, specs, omc, bits, strategy, ste)
+        # one forward and backward pass a step for the C clients: the
+        # gradient of the sum of their losses is each client's own gradient
+        trained, losses = _sgd(lambda p, b: family.loss_clients(cfg, p, b), eff, batches,
+                               sim.client_lr)
+        with torch.no_grad():
+            if sparse:
+                # the update, with the residual rows under error feedback
+                out, rows = strategy_upload_batch(trained, eff, ef_rows, specs, omc, strategy,
+                                                  bits, ste)
+            else:
+                # the transport compression: re-quantize under the same masks
+                out, rows = client_view_batch(trained, specs, omc, bits, strategy, ste), {}
+        return out, losses.mean(0), rows
+
+    return batch_client
 
 
 def run_round(family, cfg, specs, omc: OMCConfig, sim: SimConfig, server_params,

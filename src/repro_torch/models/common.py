@@ -5,7 +5,11 @@ Port of ``repro.models.common``.  Models are plain functions over nested
 ``dict`` parameter trees keyed like the reference's.  Per-block parameters
 are stacked on a leading layer axis; where the reference scans over that
 axis under remat, the port runs a Python loop (``scan_blocks``), each layer
-under ``torch.utils.checkpoint`` when gradients are taken.
+under ``torch.utils.checkpoint`` when gradients are taken.  Where the
+reference ``vmap``s a client's loss over a cohort, ``scan_blocks_clients``
+runs the layers of C clients at once: each layer's ``checkpoint`` wraps a
+``torch.func.vmap`` of the block over the client axis (a checkpoint cannot
+sit inside ``vmap``: its saved-tensor hooks do not compose with it).
 
 A model multiplies by a weight matrix through :func:`linear`, which takes
 the weight as an f32 tensor or in code form (a ``CompressedVariable``, which
@@ -405,3 +409,29 @@ def scan_blocks(block_fn: Callable, stacked_params, x, mat: Materializer,
         x = layer_call(block_fn, stored, x, mat, i, operands)
     return x
 
+
+def layer_call_clients(block_fn: Callable, stored, x, i: int = 0):
+    """:func:`layer_call` for C clients: ``x`` and every leaf of ``stored``
+    carry a leading client axis, and the block runs under
+    ``torch.func.vmap`` over it, inside one ``checkpoint`` (non-reentrant)
+    when gradients are taken.  The weights are f32 (training's identity
+    materializer)."""
+
+    def body(carry, w):
+        return torch.func.vmap(lambda c, ww: block_fn(c, ww, i))(carry, w)
+
+    if torch.is_grad_enabled():
+        return checkpoint(body, x, stored, use_reentrant=False)
+    return body(x, stored)
+
+
+def scan_blocks_clients(block_fn: Callable, stacked_params, x):
+    """:func:`scan_blocks` over C clients: ``x [C, ...]`` and every stacked
+    leaf ``[C, L, ...]``; each layer through :func:`layer_call_clients`.
+    The leaves are unbound once along the layer axis, so a leaf's gradient
+    is one stack of the per-layer gradients."""
+    slices = tree_map(lambda a: a.unbind(1), stacked_params)
+    n = len(next(tree_items(slices))[1])
+    for i in range(n):
+        x = layer_call_clients(block_fn, tree_map(lambda a: a[i], slices), x, i)
+    return x

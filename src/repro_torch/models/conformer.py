@@ -7,7 +7,11 @@ pointwise) → ½·FFN → LayerNorm.  The audio frontend is a stub:
 ``batch["frames"]`` carries frame embeddings ``[B, S, d_in]``; the objective
 is framewise cross-entropy against ``batch["labels"]``.  The backward pass
 is autograd's.  Parameters are nested dicts keyed like the reference's, so
-its trees carry across as numpy (``repro_torch.interop``).
+its trees carry across as numpy (``repro_torch.interop``).  ``loss_clients``
+is ``loss`` of C clients at once, each with its own parameters and batch
+(the reference ``vmap``s ``loss`` over a cohort): the stem and the head
+under ``torch.func.vmap``, each layer under a checkpoint around a vmapped
+block (``common.scan_blocks_clients``).
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from repro_torch.core import prng
 
 from . import attention as attn
 from .common import (
+    IDENTITY_MAT,
     RSPEC,
     Materializer,
     ParamSpec,
@@ -32,6 +37,7 @@ from .common import (
     init_layers,
     layer_norm,
     scan_blocks,
+    scan_blocks_clients,
     softmax_xent_chunked,
     wspec,
 )
@@ -155,10 +161,13 @@ def _conv_module(cfg: ConformerConfig, w, x):
     k, s = cfg.conv_kernel, x.shape[1]
     left = k - 1 if cfg.causal_conv else (k - 1) // 2
     hp = F.pad(h, (0, 0, left, k - 1 - left))
-    # depthwise conv: the k shifted products as one windowed product and a sum
-    # over the taps (the reference adds them one by one; a cuDNN convolution
-    # would run in TF32 by default)
-    acc = (hp.unfold(1, k, 1) * w["conv_dw"].T).sum(-1)  # [B, S, D, k] -> [B, S, D]
+    # depthwise conv: the k shifted windows stacked on a leading tap axis,
+    # times the taps, summed over that axis (on the CPU tap by tap: the
+    # reference's order).  A cuDNN convolution would run in TF32 by default;
+    # unfold's backward has no batching rule under vmap; slices and stack
+    # do, and with the tap axis leading the vmapped backward stays fast.
+    win = torch.stack([hp[:, i:i + s] for i in range(k)])  # [k, B, S, D]
+    acc = (win * w["conv_dw"][:, None, None, :]).sum(0)
     h = group_norm(acc, w["conv_gn_scale"], w["conv_gn_bias"], cfg.gn_groups, cfg.norm_eps)
     return x + F.silu(h) @ w["conv_pw2"]
 
@@ -180,19 +189,23 @@ def _block_apply(cfg: ConformerConfig, w, x, positions):
     return layer_norm(x, w["out_scale"], w["out_bias"], cfg.norm_eps)
 
 
-def forward(cfg: ConformerConfig, params, batch, mat: Materializer) -> torch.Tensor:
+STEM = ("in_proj", "in_bias")
+HEAD = ("out_proj", "out_bias")
+
+
+def _stem(params, batch, mat: Materializer) -> torch.Tensor:
     frames = batch["frames"].float()
-    x = frames @ mat.leaf(params["in_proj"]) + mat.leaf(params["in_bias"])
-    b, s, _ = x.shape
-    positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
-    return scan_blocks(lambda carry, w, _: _block_apply(cfg, w, carry, positions),
-                       params["blocks"], x, mat)
+    return frames @ mat.leaf(params["in_proj"]) + mat.leaf(params["in_bias"])
 
 
-def loss(cfg: ConformerConfig, params, batch, mat: Materializer) -> torch.Tensor:
+def _positions(x: torch.Tensor) -> torch.Tensor:
+    b, s = x.shape[-3:-1]
+    return torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
+
+
+def _head_loss(params, hidden, batch, mat: Materializer) -> torch.Tensor:
     """Framewise cross-entropy; ``out_bias`` enters as an extra row of the
     head against a ones column of the hidden state, as in the reference."""
-    hidden = forward(cfg, params, batch, mat)
     head = mat.leaf(params["out_proj"])
     bias = mat.leaf(params["out_bias"])
     b, s, _ = hidden.shape
@@ -200,3 +213,27 @@ def loss(cfg: ConformerConfig, params, batch, mat: Materializer) -> torch.Tensor
                                                device=hidden.device)], -1)
     head_aug = torch.cat([head, bias[None, :]], 0)
     return softmax_xent_chunked(hidden_aug, head_aug, batch["labels"], batch.get("mask"))
+
+
+def forward(cfg: ConformerConfig, params, batch, mat: Materializer) -> torch.Tensor:
+    x = _stem(params, batch, mat)
+    positions = _positions(x)
+    return scan_blocks(lambda carry, w, _: _block_apply(cfg, w, carry, positions),
+                       params["blocks"], x, mat)
+
+
+def loss(cfg: ConformerConfig, params, batch, mat: Materializer) -> torch.Tensor:
+    """Framewise cross-entropy of :func:`forward`'s hidden states."""
+    return _head_loss(params, forward(cfg, params, batch, mat), batch, mat)
+
+
+def loss_clients(cfg: ConformerConfig, params, batch) -> torch.Tensor:
+    """:func:`loss` of C clients, ``[C]``: every leaf of ``params`` (f32) and
+    every tensor of ``batch`` carries a leading client axis."""
+    x = torch.func.vmap(lambda p, bt: _stem(p, bt, IDENTITY_MAT))(
+        {k: params[k] for k in STEM}, batch)
+    positions = _positions(x)
+    x = scan_blocks_clients(lambda carry, w, _: _block_apply(cfg, w, carry, positions),
+                            params["blocks"], x)
+    return torch.func.vmap(lambda p, h, bt: _head_loss(p, h, bt, IDENTITY_MAT))(
+        {k: params[k] for k in HEAD}, x, batch)

@@ -10,7 +10,10 @@ the training round's ``QParam`` tree).  A config with ``prefix_embeds >
 0`` is the VLM (internvl2-1b): ``batch["patches"]``, the stubbed vision
 frontend's precomputed embeddings, are prepended to the token rows and
 carry no next-token target.  A config whose windows differ between layers
-(``swa_every > 1``) runs each layer with its own window.
+(``swa_every > 1``) runs each layer with its own window.  ``loss_clients``
+is ``loss`` of C clients at once, each with its own parameters and batch:
+the embedding and the head under ``torch.func.vmap``, each layer under a
+checkpoint around a vmapped block (``common.scan_blocks_clients``).
 
 When serving, the stacked block parameters are consumed by a Python loop
 over layers.  The seven block matrices of a layer (``OPERANDS``) go through
@@ -30,6 +33,7 @@ from repro_torch.core import prng
 
 from . import attention as attn
 from .common import (
+    IDENTITY_MAT,
     Materializer,
     ParamSpec,
     RSPEC,
@@ -41,6 +45,7 @@ from .common import (
     linear,
     rms_norm,
     scan_blocks,
+    scan_blocks_clients,
     shard_hint,
     softmax_xent_chunked,
     stack_entry,
@@ -230,7 +235,29 @@ def forward(cfg: TransformerConfig, params, batch, mat: Materializer) -> torch.T
 def loss(cfg: TransformerConfig, params, batch, mat: Materializer) -> torch.Tensor:
     """Mean next-token cross-entropy (over ``batch["mask"]`` where given);
     the prefix positions carry no target."""
-    hidden = forward(cfg, params, batch, mat)
+    return _xent(cfg, params, forward(cfg, params, batch, mat), batch, mat)
+
+
+def loss_clients(cfg: TransformerConfig, params, batch) -> torch.Tensor:
+    """:func:`loss` of C clients, ``[C]``: every leaf of ``params`` (f32) and
+    every tensor of ``batch`` carries a leading client axis."""
+    embed = {"embed": params["embed"]}
+    x = torch.func.vmap(lambda p, bt: _input_embeds(cfg, p, bt, IDENTITY_MAT)[0])(embed, batch)
+    b, s = x.shape[1:3]
+    positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
+    x = scan_blocks_clients(lambda carry, w, i: _block_apply(cfg, w, carry, positions,
+                                                             cfg.layer_window(i)),
+                            params["blocks"], x)
+    head = {k: params[k] for k in ("final_norm", "embed", "lm_head") if k in params}
+
+    def head_loss(p, h, bt):
+        hidden = rms_norm(h, p["final_norm"], cfg.norm_eps)
+        return _xent(cfg, p, hidden, bt, IDENTITY_MAT)
+
+    return torch.func.vmap(head_loss)(head, x, batch)
+
+
+def _xent(cfg: TransformerConfig, params, hidden, batch, mat: Materializer) -> torch.Tensor:
     labels, mask = batch["labels"], batch.get("mask")
     if cfg.prefix_embeds:
         b = labels.shape[0]

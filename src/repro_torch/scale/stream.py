@@ -14,12 +14,13 @@ Padding contract, as the reference's: a short final chunk repeats its first
 client in the pad lanes with weight 0; dead rows are zeroed with ``where``
 *before* the weighted sum, so a diverged dead client (NaN update) cannot
 poison the partials.  The reference trains every lane of its padded
-``vmap``; the port trains a chunk's lanes one after another (as its engine
-and async runtime do, ROADMAP C15) and skips the pad lanes, which it knows
-because cohort ids are distinct (a lane repeating an earlier lane's client
-is a pad).  The partial sums add lane after lane from +0, so a pad lane's
-``+0`` term would leave them unchanged: they are the same bits with the pads
-trained or skipped (ROADMAP C22).
+``vmap``; the port trains a chunk's real lanes in one call of the batched
+body its engine and async runtime run
+(:func:`repro_torch.federated.simulate.make_batch_client_fn`) and skips the
+pad lanes, which it knows because cohort ids are distinct (a lane repeating
+an earlier lane's client is a pad).  The partial sums add lane after lane
+from +0, so a pad lane's ``+0`` term would leave them unchanged: they are
+the same bits with the pads trained or skipped (ROADMAP C22).
 
 ``fused_agg=True`` mirrors the fused engine's transport semantics (§13):
 each compressed variable's chunk stack is transport-encoded
@@ -124,10 +125,11 @@ def make_stream_fn(family, cfg, specs, omc: OMCConfig, sim: SimConfig, data_fn,
     lanes, as a fourth output (the caller scatters only the real, alive
     lanes, ``PopulationStore.scatter_ef``).
 
-    The client body is :func:`repro_torch.federated.simulate.make_client_fn`,
-    the one the loop, engine and async runtime run; ``data_fn(client,
-    round, step)`` draws each lane's batches.  One function serves every
-    chunk of every shard of every round.
+    The client body is
+    :func:`repro_torch.federated.simulate.make_batch_client_fn`, the one the
+    engine and the async runtime run, over the chunk's real lanes at once;
+    ``data_fn(client, round, step)`` draws each lane's batches.  One
+    function serves every chunk of every shard of every round.
 
     ``collect_metrics=True`` (DESIGN.md §15) appends the chunk's metric
     *partial* bundle (``update_sq_wsum``) as the last output; the caller
@@ -142,8 +144,8 @@ def make_stream_fn(family, cfg, specs, omc: OMCConfig, sim: SimConfig, data_fn,
                          "(DESIGN.md §13/§14)")
     if takes_residual is None:
         takes_residual = simulate.ef_lib.takes_residual(omc, strategy)
-    one = simulate.make_client_fn(family, cfg, specs, omc, sim, strategy, ste,
-                                  takes_residual=takes_residual)
+    many = simulate.make_batch_client_fn(family, cfg, specs, omc, sim, strategy, ste,
+                                         takes_residual=takes_residual)
 
     def stream_fn(storage, cids, w, round_index, ef_rows=None):
         if takes_residual and ef_rows is None:
@@ -156,30 +158,21 @@ def make_stream_fn(family, cfg, specs, omc: OMCConfig, sim: SimConfig, data_fn,
         with torch.no_grad():
             server_f32 = decompress_tree(storage)
         lanes = trained_lanes(cids)
-        # each lane's model goes into its row of the chunk's stacks as soon
-        # as it is trained, so the chunk's models are held once
-        stacked, losses = None, []
-        for j, i in enumerate(lanes):
-            batches = simulate.client_batches(data_fn, cids[i], r, sim.local_steps)
-            if takes_residual:
-                m, loss, rows = one(server_f32, batches, r, cids[i],
-                                    {k: v[i] for k, v in ef_rows.items()})
-                with torch.no_grad():
-                    for k, v in ef_rows.items():
-                        v[i] = rows[k]
-                del rows
-            else:
-                m, loss = one(server_f32, batches, r, cids[i])
+        ids = [cids[i] for i in lanes]
+        batches = simulate.cohort_batches(data_fn, ids, [r] * len(ids), sim.local_steps)
+        if takes_residual:
+            stacked, losses, rows = many(server_f32, batches, [r] * len(ids), ids,
+                                         {k: v[lanes] for k, v in ef_rows.items()})
             with torch.no_grad():
-                stacked = simulate.stack_into(stacked, j, m, len(lanes))
-            del m
-            losses.append(loss)
+                for k, v in ef_rows.items():
+                    v[lanes] = rows[k].to(v.device)
+            del rows
+        else:
+            stacked, losses, _ = many(server_f32, batches, [r] * len(ids), ids)
         with torch.no_grad():
-            dev = torch.stack(losses).device
-            w_t = torch.as_tensor(w, dtype=torch.float32).to(dev)[lanes]
-            wsum, wtot, loss_wsum, masked = partial_sums(specs, storage, stacked,
-                                                         torch.stack(losses), w_t, omc,
-                                                         fused_agg)
+            w_t = torch.as_tensor(w, dtype=torch.float32).to(losses.device)[lanes]
+            wsum, wtot, loss_wsum, masked = partial_sums(specs, storage, stacked, losses, w_t,
+                                                         omc, fused_agg)
             out = (wsum, wtot, loss_wsum) + ((ef_rows,) if takes_residual else ())
             if collect_metrics:
                 out += (obs_metrics.chunk_partial_bundle(server_f32, masked, w_t),)

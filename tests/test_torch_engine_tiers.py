@@ -5,7 +5,9 @@ that must not change a round.
 Gates, those of tests/test_engine.py: stratified cohorts and ledgers equal,
 loss within 1e-3, decompressed trees within max |d| 6e-3 and mean |d| 1e-3
 per leaf.  ``client_chunk`` and ``data_mode`` leave the port's round bit
-for bit the same (clients run one at a time in either case).
+for bit the same on the CPU (the cohort batched in one call or in blocks of
+4; tests/test_torch_client_axis.py holds the widths to the reference's gate
+as well).
 """
 
 import jax

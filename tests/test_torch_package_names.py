@@ -1,12 +1,14 @@
 """The package-level names of ``core``, ``api``, ``data``, ``obs``,
-``scale`` and ``roofline``: the port's against the reference's.
+``scale``, ``roofline``, ``configs`` and ``models``: the port's against the
+reference's.
 
 Each package's public names (its ``__all__``; the reference's ``api`` has
 none, so its public non-module names) are compared.  The port must define
 every name it exports, export none the reference lacks, and lack none:
 ``core`` has all of the reference's since the compression strategies came
 (ROADMAP A7), ``obs`` its seven since telemetry came (ROADMAP A11), ``scale``
-its twelve since the sharded population runtime came (ROADMAP A9).
+its twelve since the sharded population runtime came (ROADMAP A9),
+``configs`` and ``models`` their five and two since A13.
 ``roofline`` lacks ``analyze_compiled`` and ``collective_bytes``, which
 read XLA's HLO text (ROADMAP C25).
 """
@@ -27,7 +29,8 @@ def _public(mod):
 @pytest.mark.parametrize("pkg, missing", [("core", set()), ("api", set()), ("data", set()),
                                           ("obs", set()), ("scale", set()),
                                           ("roofline", {"analyze_compiled",
-                                                        "collective_bytes"})])
+                                                        "collective_bytes"}),
+                                          ("configs", set()), ("models", set())])
 def test_package_names_match_the_reference(pkg, missing):
     ref = importlib.import_module(f"repro.{pkg}")
     port = importlib.import_module(f"repro_torch.{pkg}")
